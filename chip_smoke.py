@@ -7,9 +7,10 @@ Phases (any failure exits non-zero):
   1. card      name and power limit from nvidia-smi
   2. build     nvcc builds every kernel of the serving paths from csrc/ (K1
                paged decode attention, K2 grouped-expert FFN), in parallel
-  3. kernels   K1 against its plain PyTorch version on the card, at
-               llama3-8b shapes (and head_dim 64), bf16 and f32, with times
-               of the kernel, the plain version and a library yardstick
+  3. kernels   K1 (one launch; mma.sync in bf16) against its plain PyTorch
+               version on the card, at llama3-8b shapes (and head_dim 64),
+               bf16 and f32, with times of the kernel, the plain version
+               and a library yardstick
   4. decode    one full-width llama3-8b decode_step in bf16 (random weights),
                kernel against plain paged attention; the same on the first
                two layers in f32, with a tight tolerance
@@ -19,17 +20,20 @@ Phases (any failure exits non-zero):
   6. moe       K2 against its plain version at full Mixtral width (decode
                and prefill sizes, skewed routing, an empty expert), bf16 and
                f32, with times of the kernel, the plain version and a
-               per-expert cuBLAS yardstick; both row tiles timed on each
-               side of the glue's switch; the routing glue under
-               torch.cuda.set_sync_debug_mode("error")
+               per-expert cuBLAS yardstick at T=4 and T=1100; the routing
+               glue under torch.cuda.set_sync_debug_mode("error")
   7. moe decode  one Mixtral (16 of 32 layers) decode_step in bf16, grouped
-               (K2) against dense; the first layer's MoE FFN in bf16 and the
-               first two layers in f32, tight
+               (K2) against dense on every lane, except a lane whose top-k
+               routing differs between the two at a near-tie of its router
+               logits; every layer's MoE FFN in bf16 on the dense step's
+               inputs and the first two layers in f32, tight
   8. moe serve   TorchEngine (grouped_moe=True) + the OpenAI server for
-               Mixtral (16 layers), the same 4 requests; K1 and K2 counted
+               Mixtral (16 layers), the same 4 requests; K1 and K2 counted,
+               K2 by path (every prefill and decode step on wgmma)
 The lines before the last carry the card's name and power limit and a JSON
 object listing each kernel once for every serving path that launches it,
-with that path's launch count; the last line is
+with that path's launch count (K2's entry also by kernel path, and its
+prefill-size times under prefill_*); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -83,13 +87,22 @@ MOE_BF16_TOL = 1e-2
 # logits; a coarse 5 % of max |logit|, as for K1. In f32 on two layers only
 # summation order differs -> 1e-4 of max |logit|.
 MOE_LOGITS_REL_TOL = 5e-2
-# The first layer's MoE FFN output in bf16, grouped (K2) against dense, on
-# the step's normed embeddings: the dense path rounds up, gate, silu and
+# Each layer's MoE FFN output in bf16, grouped (K2) against dense, on the
+# dense decode step's input of that layer: the dense path rounds up, gate, silu and
 # their product to bf16 where K2 rounds act once, so act differs by a few
 # bf16 steps; elementwise within 3e-2 * |dense| + 3e-2 * rms(dense) (sound
 # runs read 1.7e-2; a row on the wrong expert would be off by about the
 # output's own size).
 MOE_FFN_BF16_TOL = 3e-2
+# A decode lane whose top-k routing differs between grouped and dense is
+# left out of the logits gate only at a near-tie: its k-th and (k+1)-th
+# router logits (bf16 values, from the dense step) within this many bf16
+# steps of their magnitude. The two paths' FFN outputs differ by a few bf16
+# steps per layer, which moves the router logits of later layers by up to
+# ~10 steps (at magnitudes ~1, on this script's seeded lanes), while the
+# k-th and (k+1)-th of 8 router logits of unit scale lie ~0.3 apart, ~40
+# steps: a lane moved off its expert by a fault flips at such a margin.
+MOE_ROUTE_TIE_STEPS = 8
 MODEL = "llama3-8b"
 MOE_MODEL = "mixtral-8x7b"
 MOE_LAYERS = 16   # of 32: 93.4 GB in bf16 do not fit in 80 GB; 16 take 47 GB
@@ -103,49 +116,6 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Wall ms per call between CUDA events around ``iters`` calls: the
-    device time when the host keeps ahead, the host's enqueue time when not."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def kernel_times(fn, iters: int = 20, warmup: int = 3) -> dict[str, float]:
-    """Device ms per call of each CUDA kernel ``fn`` launches, from a
-    torch.profiler trace of ``iters`` calls (kernel events only)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / iters
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0}
-
-
-def device_ms(fn, iters: int = 20) -> tuple[float, float, bool]:
-    """(ms per call, event wall ms per call, from_profiler): the summed
-    device time of the call's kernels where the profiler sees the card,
-    else the CUDA-event time."""
-    wall = cuda_ms(fn, iters)
-    dev = sum(kernel_times(fn, iters).values())
-    return (dev, wall, True) if dev > 0 else (wall, wall, False)
 
 
 # ---- phase 3: paged decode attention (K1) ------------------------------
@@ -243,6 +213,7 @@ def check_attention(name: str, args: tuple) -> float:
 def phase_kernels(serve_seq_lens: list[int]) -> dict:
     from llm_d_inference_scheduler_tpu_torch.ops import paged_attention as pa
     from llm_d_inference_scheduler_tpu_torch.ops.attention import paged_decode_attention
+    from llm_d_inference_scheduler_tpu_torch.tools.timing import device_ms, kernel_times
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -281,7 +252,7 @@ def phase_kernels(serve_seq_lens: list[int]) -> dict:
                 c["seq_lens"], c["cur_k"], c["cur_v"])
 
     worst = max(worst, check_attention("serve shape B=4, timed pages", args()))
-    kernel =lambda: pa.paged_decode_attention_cuda(*args())
+    kernel = lambda: pa.paged_decode_attention_cuda(*args())
     plain = lambda: paged_decode_attention(*args())
     k1, k1_wall, prof_ok = device_ms(kernel)
     p1, p1_wall, _ = device_ms(plain)
@@ -395,6 +366,8 @@ def phase_decode(cfg, params) -> None:
 def decode_breakdown(tag: str, step, B: int, n_layers: int) -> None:
     """Where a decode step's time goes: host clock with a sync, the host's
     enqueue time alone, and the device time of its kernels by class."""
+    from llm_d_inference_scheduler_tpu_torch.tools.timing import kernel_times
+
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -407,8 +380,7 @@ def decode_breakdown(tag: str, step, B: int, n_layers: int) -> None:
     kt = kernel_times(step, iters=5, warmup=0)
     busy = sum(kt.values())
     k1 = sum(ms for name, ms in kt.items() if "paged_decode" in name)
-    k2 = sum(ms for name, ms in kt.items() if "grouped_mma" in name
-             or "grouped_simt" in name)
+    k2 = sum(ms for name, ms in kt.items() if "grouped_" in name)
     gemm = sum(ms for name, ms in kt.items() if "gemm" in name or "nvjet" in name
                or "cutlass" in name)
     log(f"[{tag}] decode_step B={B}: wall {wall_ms:.2f} ms/step, host enqueue "
@@ -478,12 +450,14 @@ async def serve(cfg_model, params, card: str, *, tag: str = "serve",
                 **engine_kw) -> dict:
     """Serve ``model`` (a registry name or a model_config.json directory)
     through TorchEngine and the HTTP server; fail unless each of ``kernels``
-    launched at least n_layers times per decode step. Returns the launch
-    counts of this run."""
+    launched at least n_layers times per decode step and, where K2 is among
+    them, its bf16 wgmma path n_layers times per prefill and decode step.
+    Returns the launch counts of this run and K2's launches by kernel path."""
     from llm_d_inference_scheduler_tpu_torch import ops
     from llm_d_inference_scheduler_tpu_torch.engine.config import EngineConfig
     from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
     from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
+    from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe
 
     cfg = EngineConfig(model=model, served_model_name=served, device="cuda", port=0,
                        max_batch=8, max_model_len=2048, decode_chunk=8, **engine_kw)
@@ -504,6 +478,7 @@ async def serve(cfg_model, params, card: str, *, tag: str = "serve",
                                          for b in serve_prompts(name)])
         wall = time.monotonic() - t0
         launches = ops.kernel_launches()
+        paths = dict(grouped_moe.path_launches)
         steps = engine.decode_steps - before[0]
         metrics = await asyncio.to_thread(http_get, server.port, "/metrics")
         models = json.loads(await asyncio.to_thread(http_get, server.port, "/v1/models"))
@@ -531,14 +506,20 @@ async def serve(cfg_model, params, card: str, *, tag: str = "serve",
         fail(f"/v1/models: {models}")
     n_layers = cfg_model.n_layers
     need = n_layers * steps
-    log(f"[{tag}] decode steps {steps}, launches {launches} "
-        f"(n_layers x steps = {need})")
+    log(f"[{tag}] decode steps {steps}, launches {launches}, grouped_moe_ffn by "
+        f"path {paths} (n_layers x steps = {need})")
     if steps <= 0:
         fail(f"{tag}: the serving run made no decode step")
     for kernel in kernels:
         if launches[kernel] < need:
             fail(f"{tag}: the serving decode did not go through {kernel} "
                  f"({launches[kernel]} launches < {need})")
+    # Every request's prefill and every decode step runs each layer's MoE
+    # FFN once, all of them on the wgmma path.
+    need_wgmma = n_layers * (len(results) + steps)
+    if grouped_moe.KERNEL in kernels and paths["wgmma"] < need_wgmma:
+        fail(f"{tag}: the prefills and decode steps did not all go through "
+             f"grouped_moe_ffn's wgmma path ({paths} < {need_wgmma})")
     dec_s = tel.decode_step.sum - before[1]
     dec_tokens = tel.generation_tokens.value - before[2] - len(results)
     ttft_mean = (tel.ttft.sum - before[3]) / max(tel.ttft.count - before[4], 1)
@@ -547,7 +528,7 @@ async def serve(cfg_model, params, card: str, *, tag: str = "serve",
         f"{ttft_mean * 1e3:.1f} ms (streamed request, client side "
         f"{stream_ttft * 1e3:.1f} ms); decode {dec_tokens:.0f} tokens in "
         f"{dec_s:.3f}s of decode chunks = {dec_tokens / dec_s:.1f} tok/s")
-    return launches
+    return launches, paths
 
 
 # ---- phase 6: grouped-expert FFN (K2) -----------------------------------
@@ -584,13 +565,13 @@ def moe_tokens(gen, T, D, dtype, skew=False):
     return x.to(dtype)
 
 
-def routed_args(lp, x, E, k, tm=None) -> tuple[tuple, torch.Tensor]:
+def routed_args(lp, x, E, k) -> tuple[tuple, torch.Tensor]:
     """The kernel's arguments for tokens x as the routing glue lays them
     out, (x_pad, tile_expert, w1, w3, w2, tm, rows_used), and the routed
     rows per expert."""
     from llm_d_inference_scheduler_tpu_torch.ops import moe
 
-    g = moe.group_rows(lp, x, E, k, tm=tm)
+    g = moe.group_rows(lp, x, E, k)
     return (g.x_pad, g.tile_expert, lp["w1"], lp["w3"], lp["w2"], g.tm,
             g.rows_used), g.counts
 
@@ -664,6 +645,7 @@ def cublas_yardstick(lp, x, k: int):
 
 def phase_moe_kernels(cfg) -> dict:
     from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe, moe
+    from llm_d_inference_scheduler_tpu_torch.tools.timing import device_ms, kernel_times
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -718,7 +700,7 @@ def phase_moe_kernels(cfg) -> dict:
         "set_sync_debug_mode('error'): no host sync")
 
     # Times at the serve phase's decode bucket (T=4) and at prefill size.
-    row = None
+    res = {}
     for T, (lp, x, args, counts) in timed.items():
         kernel = lambda: grouped_moe.grouped_ffn_cuda(*args)
         plain = lambda: moe.grouped_ffn_reference(*args[:6])
@@ -737,33 +719,27 @@ def phase_moe_kernels(cfg) -> dict:
             f"bound {bound_ms:.4f} ms by {bound_by}; wall per call by CUDA events: "
             f"kernel {k1_wall:.4f}/{k2_wall:.4f} ms, plain {p1_wall:.4f}/{p2_wall:.4f} "
             f"ms, yardstick {lib_wall:.4f} ms")
+        flops = 6 * D * lp["w1"].shape[2] * int(counts.sum())
+        log(f"[moe]   {flops / min(k1, k2) / 1e9:.1f} TFLOP/s over the routed rows "
+            f"(padding excluded); per kernel:")
         for kname, ms in kernel_times(kernel).items():
             log(f"[moe]   {ms * 1e3:9.2f} us  {kname[:100]}")
-        if T == 4:
-            row = {"name": "grouped_moe_ffn", "route": "cuda",
-                   "source": "llm_d_inference_scheduler_tpu_torch/csrc/grouped_moe_ffn.cu",
-                   "replaces": "llm_d_inference_scheduler_tpu/ops/pallas_moe.py:76",
-                   "launches": None, "max_abs_err": worst,
-                   "ms": min(k1, k2), "plain_ms": min(p1, p2),
-                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        res[T] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+                  "bound_by": bound_by, "yardstick_ms": lib}
+    # ms, plain_ms and bound_ms are the serve decode bucket's (T=4); the
+    # prefill_* keys hold T=1100, the prefill of a ~1100-token prompt.
+    row = {"name": "grouped_moe_ffn", "route": "cuda",
+           "source": "llm_d_inference_scheduler_tpu_torch/csrc/grouped_moe_ffn.cu",
+           "replaces": "llm_d_inference_scheduler_tpu/ops/pallas_moe.py:76",
+           "launches": None, "max_abs_err": worst,
+           "ms": res[4]["ms"], "plain_ms": res[4]["plain_ms"],
+           "bound_ms": res[4]["bound_ms"], "bound_by": res[4]["bound_by"],
+           "library_ms": None, "yardstick_ms": res[4]["yardstick_ms"],
+           "prefill_ms": res[1100]["ms"], "prefill_plain_ms": res[1100]["plain_ms"],
+           "prefill_bound_ms": res[1100]["bound_ms"],
+           "prefill_bound_by": res[1100]["bound_by"],
+           "prefill_yardstick_ms": res[1100]["yardstick_ms"]}
 
-    # Row tiles: the glue takes tm=16 below 16 routed rows per expert (128
-    # at E=8) and tm=64 from there; both on the same tokens on each side of
-    # the switch and at decode and prefill sizes (bf16, checked, then timed
-    # in the order 16, 64, 16, 64).
-    for T in (8, 32, 64, 1100):
-        x = moe_tokens(gen, T, D, torch.bfloat16)
-        picked = routed_args(lp16, x, E, k)[0][5]
-        per_tm = {tm: routed_args(lp16, x, E, k, tm=tm)[0] for tm in moe.TILE_ROWS}
-        for tm, args in per_tm.items():
-            worst = max(worst, check_moe(f"T={T} k={k} tile rows {tm}", args))
-        ms = {tm: [] for tm in per_tm}
-        for _ in range(2):
-            for tm, args in per_tm.items():
-                ms[tm].append(device_ms(lambda: grouped_moe.grouped_ffn_cuda(*args))[0])
-        log(f"[moe] grouped_moe_ffn row tiles T={T} k={k} bf16 ({T * k} routed rows; "
-            f"the glue picks tm={picked}), device ms: " + ", ".join(
-                f"tm={tm} {a:.4f}/{b:.4f}" for tm, (a, b) in ms.items()))
     row["max_abs_err"] = worst
     del timed, lp16
     return row
@@ -772,50 +748,119 @@ def phase_moe_kernels(cfg) -> dict:
 # ---- phase 7: Mixtral decode step, grouped against dense ------------------
 
 
+def recorded(fn):
+    """fn() with every MoE layer's routing and FFN input recorded: returns
+    (fn's result, [(router logits [T, E] f32, top-k expert ids [T, k]
+    sorted) per layer], [FFN input h per layer]), in call order."""
+    from llm_d_inference_scheduler_tpu_torch.models import llama
+    from llm_d_inference_scheduler_tpu_torch.ops import moe
+
+    routes, inputs = [], []
+    top_k, ffn = moe.top_k_gates, llama._ffn
+
+    def rec_top_k(logits, k):
+        gates, idx = top_k(logits, k)
+        routes.append((logits.clone(), idx.sort(-1).values))
+        return gates, idx
+
+    def rec_ffn(cfg, lp, h):
+        inputs.append(h.clone())
+        return ffn(cfg, lp, h)
+
+    llama.top_k_gates = moe.top_k_gates = rec_top_k
+    llama._ffn = rec_ffn
+    try:
+        out = fn()
+    finally:
+        llama.top_k_gates = moe.top_k_gates = top_k
+        llama._ffn = ffn
+    return out, routes, inputs
+
+
 def phase_moe_decode(cfg, params) -> None:
     from llm_d_inference_scheduler_tpu_torch.models import llama
-    from llm_d_inference_scheduler_tpu_torch.ops.norms import rms_norm
 
     grouped_cfg = dataclasses.replace(cfg, moe_impl="grouped")
     dense_cfg = dataclasses.replace(cfg, moe_impl="dense")
     B = len(SEQ_LENS)
     dtype = params["embed"].dtype
     tokens, positions, k_pages, v_pages, tables = decode_inputs(cfg, dtype)
-    kern, _, _ = llama.decode_step(params, grouped_cfg, tokens, positions,
-                                   k_pages, v_pages, tables)
-    plain, _, _ = llama.decode_step(params, dense_cfg, tokens, positions,
-                                    k_pages, v_pages, tables)
+    (kern, _, _), routes_g, _ = recorded(lambda: llama.decode_step(
+        params, grouped_cfg, tokens, positions, k_pages, v_pages, tables))
+    (plain, _, _), routes_d, inputs_d = recorded(lambda: llama.decode_step(
+        params, dense_cfg, tokens, positions, k_pages, v_pages, tables))
     if kern.shape != (B, cfg.vocab_size) or not bool(torch.isfinite(kern).all()):
         fail(f"MoE decode_step logits malformed: {tuple(kern.shape)}")
+    # A lane whose top-k expert set differs between the two paths at some
+    # layer follows another model from there on. It is left out of the
+    # logits gate only where, at the first layer it differs, the dense
+    # step's router logits of its k-th and (k+1)-th experts lie within
+    # MOE_ROUTE_TIE_STEPS bf16 steps (a near-tie that the paths' rounding can
+    # tip); a lane that flips at a wider margin fails the phase. The
+    # per-layer check below holds K2 on every layer, excused lanes included.
+    k = cfg.experts_per_token
+    excused, ties = [], []
+    for b in range(B):
+        layer = next((i for i, ((_, rg), (_, rd)) in enumerate(zip(routes_g, routes_d))
+                      if bool((rg[b] != rd[b]).any())), None)
+        if layer is None:
+            continue
+        logits_g, logits_d = routes_g[layer][0][b], routes_d[layer][0][b]
+        top = logits_d.sort(descending=True).values
+        margin = float(top[k - 1] - top[k])
+        step = 2.0 ** (torch.frexp(top[k - 1:k + 1].abs().max()).exponent.item() - 8)
+        moved = float((logits_g - logits_d).abs().max())
+        alike = [i for i in range(B) if bool((routes_g[layer][1][i]
+                                               == routes_d[layer][1][i]).all())]
+        moved_alike = float((routes_g[layer][0][alike] - routes_d[layer][0][alike])
+                            .abs().amax(-1).max()) if alike else float("nan")
+        ties.append(f"lane {b} at layer {layer}: top-{k} margin {margin:.4e} = "
+                    f"{margin / step:.1f} bf16 steps of {step:.4e}; router logits "
+                    f"moved up to {moved:.4e} on this lane, {moved_alike:.4e} on "
+                    f"the {len(alike)} lanes routed alike there")
+        if margin > MOE_ROUTE_TIE_STEPS * step:
+            fail(f"Mixtral decode_step: lane {b}'s routing differs between grouped "
+                 f"(K2) and dense at layer {layer}, at no near-tie ({ties[-1]})")
+        excused.append(b)
     rows = (kern - plain).abs().amax(-1)
-    diff = float(rows.max())
     scale = float(plain.abs().max())
+    held = [b for b in range(B) if b not in excused]
+    diff = float(rows[held].max()) if held else float("inf")
     agree = int((kern.argmax(-1) == plain.argmax(-1)).sum())
-    ok = diff <= MOE_LOGITS_REL_TOL * scale
+    ok = len(held) * 2 >= B and diff <= MOE_LOGITS_REL_TOL * scale
     log(f"[moe-decode] {cfg.name} ({cfg.n_layers} layers) decode_step {str(dtype)[6:]} "
         f"B={B} seq_lens={SEQ_LENS}, grouped (K2) vs dense: logits max_abs_diff="
-        f"{diff:.4f} vs max|logit|={scale:.2f} (tolerance {MOE_LOGITS_REL_TOL} x "
-        f"max|logit|) {'ok' if ok else 'MISMATCH'}; per lane "
-        f"{[round(float(r), 4) for r in rows]}; argmax agreement {agree}/{B}")
+        f"{diff:.4f} over {len(held)} lanes vs max|logit|={scale:.2f} (tolerance "
+        f"{MOE_LOGITS_REL_TOL} x max|logit|, every lane but a near-tie flip, at least "
+        f"half) {'ok' if ok else 'MISMATCH'}; per lane "
+        f"{[round(float(r), 4) for r in rows]}; routing flips (tie limit "
+        f"{MOE_ROUTE_TIE_STEPS} steps): {ties or 'none'}; argmax agreement {agree}/{B}")
     if not ok:
         fail("Mixtral decode_step: grouped (K2) and dense MoE disagree")
 
     # The logits gate is coarse; the bf16 K2 is held tightly on its own in
-    # phase 6, and here at the model level on the first layer's MoE FFN.
-    lp0 = {n: t[0] for n, t in params["layers"].items()}
-    h = rms_norm(params["embed"][tokens], lp0["ln_mlp"], cfg.norm_eps)
-    kern = llama._ffn(grouped_cfg, lp0, h).float()
-    plain = llama._ffn(dense_cfg, lp0, h).float()
-    rms = float(plain.pow(2).mean().sqrt())
-    err = (kern - plain).abs()
-    worst = float((err / (plain.abs() + rms)).max())
-    ok = bool(torch.isfinite(kern).all()) and worst <= MOE_FFN_BF16_TOL
-    log(f"[moe-decode] {cfg.name} layer 0 MoE FFN bfloat16 B={B}, grouped (K2) vs "
-        f"dense: max_abs_diff={float(err.max()):.4e}, rms(dense)={rms:.4f}, "
-        f"max |diff| / (|dense| + rms(dense)) = {worst:.4e} (tolerance "
-        f"{MOE_FFN_BF16_TOL}) {'ok' if ok else 'MISMATCH'}")
+    # phase 6, and here at the model level on every layer's MoE FFN, both
+    # paths fed the dense step's input of that layer.
+    worst, worst_abs, rms_of = 0.0, 0.0, 0.0
+    for layer, h in enumerate(inputs_d):
+        lp = {n: t[layer] for n, t in params["layers"].items()}
+        kern_l = llama._ffn(grouped_cfg, lp, h).float()
+        plain_l = llama._ffn(dense_cfg, lp, h).float()
+        rms = float(plain_l.pow(2).mean().sqrt())
+        err = (kern_l - plain_l).abs()
+        rel = float((err / (plain_l.abs() + rms)).max())
+        if not bool(torch.isfinite(kern_l).all()):
+            rel = float("inf")
+        if rel >= worst:
+            worst, worst_abs, rms_of = rel, float(err.max()), rms
+    ok = worst <= MOE_FFN_BF16_TOL
+    log(f"[moe-decode] {cfg.name} MoE FFN of each of {len(inputs_d)} layers bfloat16 "
+        f"B={B}, grouped (K2) vs dense on the dense step's layer inputs: worst layer "
+        f"max |diff| / (|dense| + rms(dense)) = {worst:.4e} (max_abs_diff="
+        f"{worst_abs:.4e}, rms(dense)={rms_of:.4f}; tolerance {MOE_FFN_BF16_TOL}) "
+        f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
-        fail("Mixtral layer-0 MoE FFN in bf16: grouped (K2) and dense disagree")
+        fail("Mixtral MoE FFN in bf16: grouped (K2) and dense disagree on a layer")
 
     cut = 2
     p32 = first_layers_f32(params, cut)
@@ -885,7 +930,7 @@ def main() -> int:
         phase_decode(cfg, params)
 
     # 5. serve
-    dense_launches = asyncio.run(serve(cfg, params, card))
+    dense_launches, _ = asyncio.run(serve(cfg, params, card))
     # llama3-8b leaves the card before Mixtral is drawn (16 + 47 GB).
     del params
     gc.collect()
@@ -917,7 +962,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as model_dir:
         with open(os.path.join(model_dir, "model_config.json"), "w") as f:
             json.dump(dataclasses.asdict(moe_cfg), f)
-        moe_launches = asyncio.run(serve(
+        moe_launches, moe_paths = asyncio.run(serve(
             moe_cfg, params, card, tag="moe-serve", model=model_dir,
             served=MOE_SERVED, kernels=(paged_attention.KERNEL, grouped_moe.KERNEL),
             grouped_moe=True))
@@ -928,9 +973,11 @@ def main() -> int:
                {**k1, "path": f"{MOE_SERVED} serve",
                 "launches": moe_launches[paged_attention.KERNEL]},
                {**k2, "path": f"{MOE_SERVED} serve",
-                "launches": moe_launches[grouped_moe.KERNEL]}]
+                "launches": moe_launches[grouped_moe.KERNEL],
+                "launches_by_path": moe_paths}]
     log(f"[done] launches on the main paths: llama3-8b serve {dense_launches}, "
-        f"{MOE_SERVED} serve {moe_launches}; peak device memory allocated "
+        f"{MOE_SERVED} serve {moe_launches} (grouped_moe_ffn by path {moe_paths}); "
+        f"peak device memory allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")

@@ -16,4 +16,4 @@ def kernel_launches() -> dict[str, int]:
 
 def reset_kernel_launches() -> None:
     paged_attention.launches = 0
-    grouped_moe.launches = 0
+    grouped_moe.reset_launches()

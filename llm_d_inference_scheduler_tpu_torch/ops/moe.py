@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-TILE_ROWS = (16, 64)   # row tiles the kernel is built for
+TILE_ROWS = 64         # rows per tile: one wgmma M of the kernel
 COL_ALIGN = 128        # d_model and d_ff must be multiples of this
 
 
@@ -87,22 +87,18 @@ class GroupedRows(NamedTuple):
 
 
 def group_rows(lp: dict[str, torch.Tensor], x: torch.Tensor, n_experts: int,
-               experts_per_token: int, *, tm: int | None = None) -> GroupedRows:
+               experts_per_token: int, *, tm: int = TILE_ROWS) -> GroupedRows:
     """Route x [..., D] (router top-k, softmax over the top-k) and lay the
     T·k (token, expert) rows out as the kernel takes them: stable-sorted by
-    expert, each expert's group starting on a row-tile boundary."""
+    expert, each expert's group starting on a row-tile boundary. The kernel
+    takes ``tm = TILE_ROWS`` at every size (the row tiles measured against it
+    on an H100 are in PERF.md); the plain version takes any ``tm``."""
     E, k = n_experts, experts_per_token
     D = x.shape[-1]
     check_tileable(D, lp["w1"].shape[2])
     xt = x.reshape(-1, D)
     T = xt.shape[0]
     n_rows = T * k
-    if tm is None:
-        # 16 rows (one mma row block) while the experts hold fewer than 16
-        # rows each on average; 64 from there, where taller tiles cut the
-        # re-reads of the weights. chip_smoke.py times both on each side of
-        # the switch (on an H100 at E=8 they tie at 64 rows; PERF.md).
-        tm = 64 if n_rows >= 16 * E else 16
     dev = x.device
 
     logits = (xt @ lp["router"]).float()                         # [T, E]
@@ -151,15 +147,14 @@ def combine(g: GroupedRows, out_pad: torch.Tensor, x: torch.Tensor) -> torch.Ten
 
 
 def moe_ffn_grouped(lp: dict[str, torch.Tensor], x: torch.Tensor,
-                    n_experts: int, experts_per_token: int, *,
-                    tm: int | None = None) -> torch.Tensor:
+                    n_experts: int, experts_per_token: int) -> torch.Tensor:
     """Top-k MoE FFN over the routed rows only; x [..., D] -> [..., D] in
     x's dtype. ``lp`` holds ``router`` [D, E], ``w1``/``w3`` [E, D, F] and
     ``w2`` [E, F, D]. The kernel's wrapper takes the plain version for CPU
     tensors."""
     from .grouped_moe import grouped_ffn_cuda
 
-    g = group_rows(lp, x, n_experts, experts_per_token, tm=tm)
+    g = group_rows(lp, x, n_experts, experts_per_token)
     out_pad = grouped_ffn_cuda(g.x_pad, g.tile_expert, lp["w1"], lp["w3"], lp["w2"],
                                g.tm, g.rows_used)
     return combine(g, out_pad, x)

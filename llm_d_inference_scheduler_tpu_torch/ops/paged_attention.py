@@ -3,13 +3,18 @@
 Replaces the TPU kernel ``paged_decode_attention_pallas``
 (``llm_d_inference_scheduler_tpu/ops/pallas_paged_attention.py:139``). The
 kernel (``csrc/paged_decode_attention.cu``) is bound by the bytes of K and V
-it must read — ``2 * sum(seq_len - 1) * Hkv * D * itemsize`` per call — and
-reads only the pages a row's ``seq_len`` needs, walking the row's block table
-itself (the gather version reads ``max_blocks * block`` rows whatever the
-length). It splits each row's positions over ``S`` CTAs (flash-decoding) and
-merges the partials in a second small kernel; this wrapper picks ``S`` and
-allocates the f32 workspace. Design and known limits are in the source's
-header.
+it must read — ``2 * sum(seq_len - 1) * Hkv * D * itemsize`` per call, 2.8 us
+on an H100 at the serving phase's decode shape — and reads only the pages a
+row's ``seq_len`` needs, walking the row's block table itself (the gather
+version reads ``max_blocks * block`` rows whatever the length). One launch:
+each row's positions are shared, on the device and by its length, among up
+to ``S`` CTAs (flash-decoding), and the last CTA of a row to finish merges
+the partials. bf16 runs its QK and PV products on the tensor cores
+(``mma.sync``), f32 on CUDA cores. This wrapper picks ``S`` from shapes and
+allocates the f32 workspace; a per-device ticket buffer, zeroed once and
+left zero by every launch, tells a row's CTAs which one finishes last (so
+calls are serialised on one stream, as the engine makes them). Design and
+what is left are in the source's header.
 
 On a CPU tensor the wrapper computes the plain version
 (``ops/attention.py:paged_decode_attention``); on a CUDA tensor it launches
@@ -28,20 +33,23 @@ from .attention import paged_decode_attention
 
 KERNEL = "paged_decode_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 32            # positions per shared-memory tile (kTile in the source)
+TILE = 64            # split granularity, positions (kChunk in the source)
 MIN_SPLIT = 64       # fewest positions worth a CTA of their own
 
 launches = 0
 _fn = None
 _sm_count: dict[int, int] = {}
+_tickets: dict[int, torch.Tensor] = {}
 
 
 def splits(B: int, Hkv: int, cap: int, n_sm: int) -> tuple[int, int]:
-    """(S, split_len): cut ``cap`` = max_blocks * block positions per row
-    into S splits of split_len (a multiple of TILE) so that the
-    Hkv * B * S CTAs cover the SMs about four times (short rows leave most
-    splits empty), with at least MIN_SPLIT positions in a split. Decided
-    from shapes alone: no device sync."""
+    """(S, split_len): at most S CTAs per (row, KV head), each taking at most
+    split_len positions (a multiple of TILE), so that the Hkv * B * S CTAs
+    cover the SMs about four times and S * split_len covers ``cap`` =
+    max_blocks * block. Decided from shapes alone: no device sync. The
+    kernel shares each row's cached positions among its S CTAs by the row's
+    length, in whole tiles of at least MIN_SPLIT positions, so a short row
+    keeps most of its CTAs idle."""
     want = max(1, -(-4 * n_sm // max(Hkv * B, 1)))
     S = max(1, min(want, -(-cap // MIN_SPLIT)))
     split_len = -(-(-(-cap // S)) // TILE) * TILE
@@ -52,7 +60,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load(KERNEL).paged_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -126,13 +134,17 @@ def paged_decode_attention_cuda(
     out = torch.empty_like(q)
     part_acc = torch.empty((B, H, S, D), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((B, H, S, 2), dtype=torch.float32, device=q.device)
+    tickets = _tickets.get(dev)
+    if tickets is None or tickets.numel() < B * Hkv:
+        tickets = _tickets[dev] = torch.zeros(max(B * Hkv, 256), dtype=torch.int32,
+                                              device=q.device)
     fn = _kernel()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_tables.data_ptr(), seq_lens.data_ptr(), cur_k.data_ptr(),
                 cur_v.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-                part_ml.data_ptr(), B, H, Hkv, D, block, max_blocks, S,
-                split_len, _DTYPE_CODE[q.dtype],
+                part_ml.data_ptr(), tickets.data_ptr(), B, H, Hkv, D, block,
+                max_blocks, S, split_len, _DTYPE_CODE[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "

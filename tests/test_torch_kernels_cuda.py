@@ -83,6 +83,56 @@ def test_decode_step_kernel_matches_plain(gpu, name):
     torch.testing.assert_close(kk, pk, atol=1e-4, rtol=1e-4)
 
 
+# seq_len values (cached positions + 1) around the kernel's share sizes:
+# nothing cached, one position, a 64-position tile +-1, split_len +-1 and
+# the full 256-position table.
+def _length_pool(split_len, cap):
+    return [1, 2, 64, 65, 66, split_len, split_len + 1, split_len + 2, cap, cap + 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,D", [(8, 8, 64), (32, 8, 128), (16, 2, 256), (32, 4, 64),
+                                     (64, 8, 128), (32, 1, 64)])
+@pytest.mark.parametrize("B", [1, 2, 5, 8])
+def test_paged_decode_kernel_lengths(gpu, B, H, Hkv, D, dtype):
+    """One launch per call at every length class, batch 1-8 and q_per_kv 1,
+    4, 8 and 32; the ticket buffer is left zero for the next call."""
+    block, maxB = 16, 16
+    cap = block * maxB
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    _, split_len = paged_attention.splits(B, Hkv, cap, n_sm)
+    pool = _length_pool(split_len, cap)
+    batches = ([[n] for n in pool] if B == 1 else
+               [[pool[(i + j) % len(pool)] for i in range(B)] for j in (0, B)])
+    atol, rtol = TOL[dtype]
+    for seq_lens in batches:
+        args = _case(gpu, seq_lens, H, Hkv, D, dtype, block=block, maxB=maxB)
+        before = paged_attention.launches
+        out = paged_attention.paged_decode_attention_cuda(*args)
+        torch.cuda.synchronize()
+        assert paged_attention.launches == before + 1
+        ref = attention.paged_decode_attention(*args)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+        assert int(paged_attention._tickets[torch.cuda.current_device()].count_nonzero()) == 0
+
+
+def test_paged_decode_kernel_is_one_launch(gpu):
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _case(gpu, [104, 2, 127, 100], 32, 8, 128, torch.bfloat16)
+    paged_attention.paged_decode_attention_cuda(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            paged_attention.paged_decode_attention_cuda(*args)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0]
+    kernels = [n for n in names if "paged_decode" in n]
+    assert len(kernels) == 1 and "mma" in kernels[0], names
+    assert sum(e.count for e in prof.key_averages() if e.key == kernels[0]) == 3
+
+
 def test_kernel_rejects_cpu_pages_with_cuda_query(gpu):
     args = list(_case(gpu, [5], 8, 2, 32, torch.float32))
     args[1] = args[1].cpu()
@@ -134,6 +184,51 @@ def test_grouped_moe_kernel_matches_plain(gpu, T, E, k, hot, empty, dtype):
         assert bool((err <= 1e-2 * ref.float().abs() + 1e-2 * rms).all())
     # Padding tiles are skipped and come out zero.
     assert (out[int(g.rows_used[0]):] == 0).all()
+
+
+def _check_grouped(lp, x, E, k, dtype):
+    g = moe.group_rows(lp, x, E, k)
+    w1, w3, w2 = lp["w1"], lp["w3"], lp["w2"]
+    path = grouped_moe.kernel_path(dtype)
+    before = grouped_moe.path_launches[path]
+    out = grouped_moe.grouped_ffn_cuda(g.x_pad, g.tile_expert, w1, w3, w2, g.tm, g.rows_used)
+    torch.cuda.synchronize()
+    assert grouped_moe.path_launches[path] == before + 1
+    ref = moe.grouped_ffn_reference(g.x_pad, g.tile_expert, w1, w3, w2, g.tm).float()
+    routed = ref[ref.abs().amax(-1) > 0]
+    rms = float(routed.pow(2).mean().sqrt())
+    err = (out.float() - ref).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-4 * rms
+    else:
+        assert bool((err <= 1e-2 * ref.abs() + 1e-2 * rms).all())
+    used = int(g.rows_used[0])
+    assert (out[used:] == 0).all()
+    return g
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,E,k,D,F,hot,empty", [
+    (1, 8, 2, 256, 384, None, None),     # decode: 2 routed rows, 2 live tiles
+    (4, 8, 2, 512, 1024, None, None),    # decode: 8 routed rows
+    (700, 8, 2, 256, 384, None, None),   # several tiles per expert; F = 3 x 128
+    (200, 8, 2, 256, 384, None, 5),      # an empty expert
+    (2200, 8, 1, 256, 384, 6, None),     # all 2200 rows on one expert
+    (150, 4, 2, 384, 256, None, None),   # D = 3 x 128: the down kernel's column tail
+    (90, 8, 2, 512, 1024, None, None),   # whole 256-wide column tiles
+])
+def test_grouped_moe_prefill_path_matches_plain(gpu, T, E, k, D, F, hot, empty, dtype):
+    """Decode and prefill sizes on the wgmma path in bf16 (f32 on CUDA
+    cores); where rows_used ends mid-buffer, the padding tiles come out
+    zero."""
+    lp, x = _moe_case(gpu, T, E, k, D, F, dtype, hot, empty)
+    g = _check_grouped(lp, x, E, k, dtype)
+    if T == 700:  # this routing leaves padding tiles past rows_used
+        assert int(g.rows_used[0]) < g.x_pad.shape[0]
+    if hot is not None:
+        assert int(g.counts[hot]) == T * k
+    if empty is not None:
+        assert int(g.counts[empty]) == 0
 
 
 def test_grouped_moe_glue_matches_dense(gpu):

@@ -214,3 +214,49 @@ def test_kernel_splits_cover_the_table(B, Hkv, cap, n_sm):
     assert S >= 1 and split_len % paged_attention.TILE == 0
     assert S * split_len >= cap > (S - 1) * split_len
     assert split_len >= min(cap, paged_attention.MIN_SPLIT)
+
+
+def _router_case(T, E, D=128, F=128):
+    gen = torch.Generator().manual_seed(0)
+    lp = {"router": torch.randn(D, E, generator=gen),
+          "w1": torch.zeros(E, D, F), "w3": torch.zeros(E, D, F), "w2": torch.zeros(E, F, D)}
+    return lp, torch.randn(T, D, generator=gen)
+
+
+@pytest.mark.parametrize("dtype,T,path", [
+    (torch.bfloat16, 1, "wgmma"), (torch.bfloat16, 1100, "wgmma"),
+    (torch.float32, 1, "simt"), (torch.float32, 1100, "simt"),
+])
+def test_grouped_kernel_path_by_dtype_and_row_tile(dtype, T, path):
+    """K2's launch count per path: bf16 on wgmma and f32 on CUDA cores, at
+    decode and prefill sizes alike (the glue lays both out in the one row
+    tile the kernel takes)."""
+    from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe, moe
+
+    lp, x = _router_case(T, 8)
+    g = moe.group_rows({n: t.to(dtype) for n, t in lp.items()}, x.to(dtype), 8, 2)
+    assert g.tm == moe.TILE_ROWS and g.x_pad.dtype == dtype
+    assert grouped_moe.kernel_path(dtype) == path
+
+
+@pytest.mark.parametrize("T,E,k,tm", [(1, 8, 2, None), (4, 8, 2, None), (1100, 8, 2, None),
+                                      (4, 8, 2, 16), (300, 8, 2, 128), (3, 4, 2, 16)])
+def test_group_rows_picks_row_tile_by_rows_per_expert(T, E, k, tm):
+    """The glue's static buffer of ceil(T*k / tm) + E - 1 tiles: the
+    kernel's tile at every size unless a tile is given (the plain version
+    takes any); each expert's rows start on a tile boundary, and the rows in
+    use are whole tiles."""
+    from llm_d_inference_scheduler_tpu_torch.ops import moe
+
+    lp, x = _router_case(T, E)
+    g = moe.group_rows(lp, x, E, k) if tm is None else moe.group_rows(lp, x, E, k, tm=tm)
+    want = moe.TILE_ROWS if tm is None else tm
+    assert g.tm == want
+    assert g.x_pad.shape[0] == (-(-T * k // want) + E - 1) * want
+    used = int(g.rows_used[0])
+    assert used % want == 0 and used <= g.x_pad.shape[0]
+    starts = torch.cat([torch.zeros(1, dtype=torch.long),
+                        torch.cumsum((g.counts + want - 1) // want * want, 0)[:-1]])
+    for e in range(E):
+        if int(g.counts[e]):
+            assert int(g.tile_expert[int(starts[e]) // want]) == e
