@@ -17,6 +17,16 @@ Phases (any failure exits non-zero):
   5. serve     TorchEngine + the OpenAI server for llama3-8b on the card,
                4 concurrent /v1/completions requests; every kernel's launch
                count is set to 0 just before and read just after
+  5b. pd      P/D KV handoff at llama3-8b width and depth: a prefill engine
+               (prefill_chunk=256) and a decode engine behind their servers,
+               driven over HTTP as the router's sidecar drives them, the
+               serial 2-phase protocol and the chunk-streamed pipelined one
+               (~1030-token prompts, 32 greedy tokens); imported pages equal
+               the exporter's bitwise, tokens equal a monolithic engine's,
+               the pipelined pull streams >= 4 chunks, no export is left,
+               and K1 launched n_layers times per decode step of the decode
+               engine; prints bytes, pull/exposed ms, the engine thread's
+               staging stall, import ms and TTFTs
   6. moe       K2 against its plain version at full Mixtral width (decode
                and prefill sizes, skewed routing, an empty expert), bf16 and
                f32, with times of the kernel, the plain version and a
@@ -31,7 +41,8 @@ Phases (any failure exits non-zero):
                Mixtral (16 layers), the same 4 requests; K1 and K2 counted,
                K2 by path (every prefill and decode step on wgmma)
 The lines before the last carry the card's name and power limit and a JSON
-object listing each kernel once for every serving path that launches it,
+object listing each kernel once for every serving path that launches it
+(the P/D decode engine's K1 launches as path "llama3-8b P/D decode"),
 with that path's launch count (K2's entry also by kernel path, and its
 prefill-size times under prefill_*); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -48,6 +59,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import torch
@@ -531,6 +543,284 @@ async def serve(cfg_model, params, card: str, *, tag: str = "serve",
     return launches, paths
 
 
+# ---- phase 5b: P/D KV handoff ---------------------------------------------
+
+PD_PREFILL_CHUNK = 256
+PD_TOKENS = 32
+
+
+def pd_prompts() -> dict[str, str]:
+    """Three ~1030-token prompts (BOS + 1029 bytes) whose first blocks
+    differ, so no prefill takes a prefix hit from another."""
+    body = ("The decode engine pulls the keys and values of every prompt block "
+            "from the prefill engine, chunk by chunk while later chunks are "
+            "still being computed, and then decodes from them. ")
+    out = {}
+    for name in ("serial", "pipelined", "staged"):
+        text = f"[{name} handoff] " + body * 8
+        out[name] = text[:1029]
+    return out
+
+
+def tap_engine(engine) -> tuple[dict, dict]:
+    """Token ids each request emitted, and the monotonic time of its first
+    token (the engine thread's emit)."""
+    tokens: dict[str, list[int]] = {}
+    first_at: dict[str, float] = {}
+    emit = engine._emit
+
+    def tap(slot, ev):
+        if ev.token_id is not None:
+            first_at.setdefault(ev.request_id, time.monotonic())
+            tokens.setdefault(ev.request_id, []).append(ev.token_id)
+        emit(slot, ev)
+
+    engine._emit = tap
+    return tokens, first_at
+
+
+def timed(engine, name: str, record: list, *, sync: bool):
+    """Wrap engine.<name>: each call appends (ms waiting for the queued
+    device work, ms of the call itself); both end in a synchronize on the
+    card. The first is what the call would also wait for unwrapped."""
+    fn = getattr(engine, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        if sync:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if sync:
+            torch.cuda.synchronize()
+        record.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        return out
+
+    setattr(engine, name, wrapper)
+
+
+def http_status(port: int, path: str) -> int:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+            r.read()
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def first_divergence(a: list[int], b: list[int]) -> int | None:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+async def phase_pd(cfg_model, params, card: str, *, model: str = MODEL,
+                   device: str = "cuda") -> int:
+    """Serve the two P/D protocols between two port engines over HTTP and
+    hold them against a monolithic engine; returns K1's launches over the
+    P/D run (the decode engine's)."""
+    from llm_d_inference_scheduler_tpu_torch import ops
+    from llm_d_inference_scheduler_tpu_torch.engine.config import EngineConfig
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
+
+    kw = dict(model=model, device=device, port=0, max_batch=8,
+              max_model_len=2048, decode_chunk=8)
+    prompts = pd_prompts()
+    sync = device == "cuda"
+
+    def request(prompt, rid, max_tokens=PD_TOKENS, ktp=None):
+        body = {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0,
+                "ignore_eos": True, "request_id": rid}
+        if ktp is not None:
+            body["kv_transfer_params"] = ktp
+        return body
+
+    # The monolithic reference, alone on the card with the pair's
+    # prefill_chunk (its KV pages leave before the pair's arrive).
+    cfg_m = EngineConfig(**kw, prefill_chunk=PD_PREFILL_CHUNK)
+    engine = TorchEngine(cfg_m, params=params)
+    mono_tokens, mono_first = tap_engine(engine)
+    server = EngineServer(cfg_m, engine=engine)
+    await server.start()
+    mono_ttft = {}
+    try:
+        await asyncio.to_thread(http_post, server.port, request("warm up", "warm", 9))
+        for name, prompt in prompts.items():
+            t0 = time.monotonic()
+            await asyncio.to_thread(http_post, server.port, request(prompt, f"mono-{name}"))
+            mono_ttft[name] = (mono_first[f"mono-{name}"] - t0) * 1e3
+    finally:
+        await server.stop()
+    del engine, server
+    gc.collect()
+    if sync:
+        torch.cuda.empty_cache()
+
+    cfg_p = EngineConfig(**kw, prefill_chunk=PD_PREFILL_CHUNK)
+    cfg_d = EngineConfig(**kw)
+    pre, dec = TorchEngine(cfg_p, params=params), TorchEngine(cfg_d, params=params)
+    dec_tokens, dec_first = tap_engine(dec)
+    chunk_stalls, export_stalls, imports, windows = [], [], [], []
+    # Host time of each prefill dispatch (no sync): the engine thread's
+    # enqueue, which the other threads of this one process contend with.
+    timed(pre, "_run_prefill", windows, sync=False)
+    timed(pre, "_maybe_stage_chunk", chunk_stalls, sync=sync)
+    timed(pre, "_stage_kv", export_stalls, sync=sync)
+    timed(dec, "_import_into_slot", imports, sync=sync)
+    # Each import is held bitwise against the exporter's pages right away
+    # (the exporter's blocks park in its prefix cache, untouched meanwhile).
+    exported: dict[str, list[int]] = {}
+    page_checks: list[tuple[str, bool]] = []
+    stage_kv = pre._stage_kv
+
+    def record_ids(rid, ids, **kwargs):
+        exported[rid] = ids[: kwargs["meta"]["num_blocks"]]
+        return stage_kv(rid, ids, **kwargs)
+
+    pre._stage_kv = record_ids
+    import_into = dec._import_into_slot
+
+    def check_pages(idx, pi, blocks):
+        import_into(idx, pi, blocks)
+        src = exported[pi.req.kv_transfer_params["remote_request_id"]]
+        d_ids = torch.tensor(blocks[: len(src)], device=dec.device)
+        p_ids = torch.tensor(src, device=pre.device)
+        same = (torch.equal(dec.k_pages[:, d_ids], pre.k_pages[:, p_ids])
+                and torch.equal(dec.v_pages[:, d_ids], pre.v_pages[:, p_ids]))
+        page_checks.append((pi.req.request_id, same))
+
+    dec._import_into_slot = check_pages
+    chunks_at_release: dict[str, int] = {}
+    release = pre.release_kv_export
+
+    def count_release(rid):
+        rec = pre.get_kv_export(rid)
+        if rec is not None:
+            chunks_at_release[rid] = rec.get("chunks_staged", 0)
+        release(rid)
+
+    pre.release_kv_export = count_release
+
+    p_srv, d_srv = EngineServer(cfg_p, engine=pre), EngineServer(cfg_d, engine=dec)
+    await p_srv.start()
+    await d_srv.start()
+    res = {}
+    try:
+        for srv in (p_srv, d_srv):
+            await asyncio.to_thread(http_post, srv.port, request("warm up", "warm", 9))
+        steps0 = dec.decode_steps
+        windows.clear()  # the warm-up's prefill
+        ops.reset_kernel_launches()
+        # (a) serial: prefill leg -> kv_transfer_params -> decode leg
+        t0 = time.monotonic()
+        r1 = await asyncio.to_thread(http_post, p_srv.port, request(
+            prompts["serial"], "p-serial", 1, {"do_remote_decode": True}))
+        ktp = r1["json"]["kv_transfer_params"]
+        r2 = await asyncio.to_thread(http_post, d_srv.port, request(
+            prompts["serial"], "d-serial", ktp=ktp))
+        res["serial"] = (r2, (dec_first["d-serial"] - t0) * 1e3)
+        serial_windows = [round(c, 1) for _, c in windows]
+        # (b) pipelined, as the sidecar: pre-assigned id, prefill leg in
+        # flight, first-chunk ack, then the decode leg pulling chunks
+        chunk_stalls.clear()  # the serial prefill's calls staged nothing
+        windows.clear()
+        t0 = time.monotonic()
+        rid = "p-pipelined"
+        prefill = asyncio.create_task(asyncio.to_thread(http_post, p_srv.port, request(
+            prompts["pipelined"], rid, 1,
+            {"do_remote_decode": True, "stream_chunks": True})))
+        while await asyncio.to_thread(http_status, p_srv.port,
+                                      f"/kv/{rid}?ack=1&wait_ms=500") != 200:
+            if prefill.done() or time.monotonic() - t0 > 120:
+                fail("pd: the prefill engine never acked a first chunk")
+        ack_ms = (time.monotonic() - t0) * 1e3
+        r3 = await asyncio.to_thread(http_post, d_srv.port, request(
+            prompts["pipelined"], "d-pipelined", ktp={
+                "remote_host": "127.0.0.1", "remote_port": p_srv.port,
+                "remote_request_id": rid, "stream_chunks": True,
+                "remote_scheme": "http"}))
+        prefill_ms = ((await prefill)["e2e_s"]) * 1e3  # leg started ~t0
+        res["pipelined"] = (r3, (dec_first["d-pipelined"] - t0) * 1e3)
+        pipelined_windows = [round(c, 1) for _, c in windows]
+        # (c) chunk-staged, pulled only once the prefill leg has answered:
+        # the staging's cost to the windows without a puller in the
+        # process, and the chunked pull's own time without waiting.
+        windows.clear()
+        t0 = time.monotonic()
+        await asyncio.to_thread(http_post, p_srv.port, request(
+            prompts["staged"], "p-staged", 1,
+            {"do_remote_decode": True, "stream_chunks": True}))
+        staged_prefill_ms = (time.monotonic() - t0) * 1e3
+        r4 = await asyncio.to_thread(http_post, d_srv.port, request(
+            prompts["staged"], "d-staged", ktp={
+                "remote_host": "127.0.0.1", "remote_port": p_srv.port,
+                "remote_request_id": "p-staged", "stream_chunks": True,
+                "remote_scheme": "http"}))
+        res["staged"] = (r4, None)
+        launches = ops.kernel_launches()["paged_decode_attention"]
+        steps = dec.decode_steps - steps0
+        left = dict(pre.kv_exports)
+    finally:
+        await p_srv.stop()
+        await d_srv.stop()
+
+    for name in prompts:
+        want = mono_tokens[f"mono-{name}"]
+        got = dec_tokens[f"d-{name}"]
+        at = first_divergence(got, want)
+        log(f"[pd] {name}: {len(got)} tokens, monolithic {len(want)}; "
+            f"{'equal' if at is None else f'first divergence at position {at}'}")
+        if at is not None or len(want) != PD_TOKENS:
+            fail(f"pd {name}: decode tokens differ from the monolithic engine's at "
+                 f"position {at}: {got[:at + 3 if at is not None else None]} vs "
+                 f"{want[:at + 3 if at is not None else None]}")
+    log(f"[pd] imported pages equal the exporter's bitwise: {page_checks}")
+    if len(page_checks) != len(prompts) or not all(ok for _, ok in page_checks):
+        fail(f"pd: imported pages differ from the exporter's: {page_checks}")
+    h_s, h_p = res["serial"][0]["headers"], res["pipelined"][0]["headers"]
+    h_c = res["staged"][0]["headers"]
+    if h_s.get("x-kv-pull-route") != "host":
+        fail(f"pd serial: pull route {h_s.get('x-kv-pull-route')}")
+    n_chunks = chunks_at_release.get(rid, 0)
+    pull_ms, exposed_ms = float(h_p["x-kv-pull-ms"]), float(h_p["x-kv-pull-exposed-ms"])
+    if h_p.get("x-kv-pull-route") != "host-chunked" or n_chunks < 4 or exposed_ms > pull_ms:
+        fail(f"pd pipelined: route {h_p.get('x-kv-pull-route')}, {n_chunks} chunks, "
+             f"exposed {exposed_ms} ms of {pull_ms} ms")
+    if left:
+        fail(f"pd: the prefill engine still holds exports {list(left)}")
+    need = cfg_model.n_layers * steps
+    if steps <= 0 or launches < need:
+        fail(f"pd: the decode engine's steps did not go through K1 "
+             f"({launches} launches < {need}, {steps} steps)")
+    stall = [round(c, 3) for w, c in chunk_stalls]
+    waits = [round(w, 3) for w, c in chunk_stalls]
+    log(f"[pd] {model}, {card}: bytes pulled serial {h_s['x-kv-pull-bytes']} "
+        f"(pow2-padded blocks), pipelined {h_p['x-kv-pull-bytes']} "
+        f"({n_chunks} chunks, real blocks); pull ms serial {h_s['x-kv-pull-ms']}, "
+        f"pipelined {pull_ms} (exposed {exposed_ms})")
+    log(f"[pd] {model}, {card}: engine-thread staging per chunk (gather + D2H; "
+        f"pipelined, then staged) {stall} ms after waiting {waits} ms for the window's queued work; "
+        f"full export staging {[round(c, 3) for w, c in export_stalls]} ms "
+        f"(after {[round(w, 3) for w, c in export_stalls]} ms); import "
+        f"(H2D + scatter) {[round(c, 3) for w, c in imports]} ms")
+    log(f"[pd] {model}, {card}: TTFT (request start to the decode engine's "
+        f"first token) serial {res['serial'][1]:.1f} ms, pipelined "
+        f"{res['pipelined'][1]:.1f} ms; monolithic {mono_ttft['serial']:.1f} / "
+        f"{mono_ttft['pipelined']:.1f} ms (serial / pipelined prompt); decode "
+        f"steps {steps}, K1 launches {launches} (n_layers x steps = {need})")
+    log(f"[pd] {model}, {card}: prefill windows' host ms (enqueue, no sync) "
+        f"serial {serial_windows}, pipelined {pipelined_windows}, staged without "
+        f"a puller {[round(c, 1) for _, c in windows]}; prefill leg answered "
+        f"after {prefill_ms:.1f} ms pipelined (first-chunk ack at {ack_ms:.1f} "
+        f"ms), {staged_prefill_ms:.1f} ms staged; the staged export pulled "
+        f"afterwards: {h_c.get('x-kv-pull-route')} {h_c.get('x-kv-pull-bytes')} "
+        f"bytes in {h_c.get('x-kv-pull-ms')} ms (exposed "
+        f"{h_c.get('x-kv-pull-exposed-ms')})")
+    return launches
+
+
 # ---- phase 6: grouped-expert FFN (K2) -----------------------------------
 
 
@@ -931,6 +1221,8 @@ def main() -> int:
 
     # 5. serve
     dense_launches, _ = asyncio.run(serve(cfg, params, card))
+    # 5b. P/D handoff between two engines sharing the weights
+    pd_launches = asyncio.run(phase_pd(cfg, params, card))
     # llama3-8b leaves the card before Mixtral is drawn (16 + 47 GB).
     del params
     gc.collect()
@@ -970,12 +1262,14 @@ def main() -> int:
     # One entry per kernel and path, each path's launches from its own run.
     entries = [{**k1, "path": f"{MODEL} serve",
                 "launches": dense_launches[paged_attention.KERNEL]},
+               {**k1, "path": f"{MODEL} P/D decode", "launches": pd_launches},
                {**k1, "path": f"{MOE_SERVED} serve",
                 "launches": moe_launches[paged_attention.KERNEL]},
                {**k2, "path": f"{MOE_SERVED} serve",
                 "launches": moe_launches[grouped_moe.KERNEL],
                 "launches_by_path": moe_paths}]
     log(f"[done] launches on the main paths: llama3-8b serve {dense_launches}, "
+        f"llama3-8b P/D decode {pd_launches}, "
         f"{MOE_SERVED} serve {moe_launches} (grouped_moe_ffn by path {moe_paths}); "
         f"peak device memory allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")

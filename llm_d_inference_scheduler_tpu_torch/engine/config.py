@@ -27,6 +27,11 @@ class EngineConfig:
     # models: the counterpart of the JAX engine's ``pallas_moe``. Off by
     # default, as there: the dense-over-experts FFN serves.
     grouped_moe: bool = False
+    # Incremental prefill: when > 0, a prompt whose un-cached suffix exceeds
+    # this many tokens prefills in windows of this size (rounded up to a KV
+    # block multiple), one window per engine step between decode chunks.
+    # 0 = whole-prompt prefill.
+    prefill_chunk: int = 0
     device: str = "cuda"          # "cpu" only when asked (tests)
     dtype: str | None = None      # None = the passed params' or the model config's
 

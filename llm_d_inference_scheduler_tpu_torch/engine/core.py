@@ -21,11 +21,26 @@ single-device serving:
 - JAX's donated page buffers become in-place updates: the KV pages
   ``[L, N, block, Hkv, Dh]`` are allocated once and written in place by the
   prefill and decode functions.
+- Incremental prefill (``prefill_chunk``): a long prompt prefills one
+  block-aligned window per engine step, between decode chunks; windows after
+  the first continue from the written blocks through
+  ``llama.prefill_with_prefix``, and the prefix-cache commit waits for the
+  last window.
+- P/D KV handoff, host-staged over HTTP (single device): a prefill tagged
+  ``do_remote_decode`` gathers its blocks to host memory (pow2-padded block
+  count) and finishes with ``kv_transfer_params`` naming this engine; with
+  ``stream_chunks`` each prefill window's newly complete blocks are staged as
+  a chunk as soon as they are written. A decode request carrying
+  ``remote_host`` pulls the export (whole, or chunk by chunk over the
+  ``/kv`` long-poll) on a fetch thread, scatters it into fresh blocks and
+  emits the exporter's first token; every failure falls back to local
+  prefill. Exports are released by the importer's ``DELETE`` or swept after
+  ``KV_EXPORT_TTL_S``.
 
-Not in this slice (the JAX engine has them): P/D KV export/import and the
-transfer server, KV events, multi-host, tensor/expert/pipeline meshes,
-warm-up, embeddings, multimodal prefill, batched and incremental prefill,
-shared-storage cache probes.
+Not in this slice (the JAX engine has them): the device-to-device transfer
+server and the sharded/multi-host KV wires, KV events, multi-host,
+tensor/expert/pipeline meshes, warm-up, embeddings, multimodal prefill,
+batched prefill, shared-storage cache probes.
 """
 
 from __future__ import annotations
@@ -33,9 +48,12 @@ from __future__ import annotations
 import asyncio
 import collections
 import dataclasses
+import http.client
+import json
 import logging
 import threading
 import time
+import urllib.parse
 import uuid
 from typing import Any
 
@@ -46,6 +64,7 @@ from ..models import llama
 from ..ops.moe import check_tileable
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.hashing import chain_block_hashes
+from . import kv_wire
 from .blocks import BlockAllocator, PrefixCachingAllocator
 from .config import EngineConfig
 from .request import EngineRequest, FinishReason, TokenEvent
@@ -54,6 +73,8 @@ from .telemetry import EngineTelemetry, PrefixHitLog
 from .tokenizer import get_tokenizer
 
 log = logging.getLogger("engine.torch")
+
+KV_EXPORT_TTL_S = 60.0
 
 
 @dataclasses.dataclass
@@ -71,6 +92,25 @@ class _Slot:
     # decode chunks once _finalize_prefills has read it back.
     pending_tok: torch.Tensor | None = None
     prompt_len: int = 0
+    # Incremental prefill: while True the slot stays out of decode batches;
+    # _advance_prefills writes one window per engine step. chunk_meta holds
+    # (hashes, caching) for the prefix-cache commit after the last window.
+    prefilling: bool = False
+    prefill_rest: list[int] = dataclasses.field(default_factory=list)
+    prefill_written: int = 0
+    chunk_meta: Any = None
+
+
+@dataclasses.dataclass
+class _PendingImport:
+    """A decode request whose KV is being (or has been) pulled: the
+    exporter's geometry headers and its K and V as host tensors."""
+    req: EngineRequest
+    out: asyncio.Queue
+    loop: asyncio.AbstractEventLoop
+    kv: tuple[torch.Tensor, torch.Tensor] | None = None
+    headers: dict[str, str] | None = None
+    error: str | None = None
 
 
 class TorchEngine:
@@ -106,6 +146,20 @@ class TorchEngine:
         self._queue_wait_order: collections.deque[str] = collections.deque()
         # Engine-confirmed prefix-hit depth per request (x-kv-hit-* headers).
         self.kv_hits = PrefixHitLog(self.telemetry, block)
+        # Host-staged P/D exports: request_id -> record. Written by the
+        # engine thread, read and popped by the server's event loop under
+        # _exports_lock; the /kv long-poll reads a record's counters without
+        # it (chunk data is appended before the counters move).
+        self.kv_exports: dict[str, dict[str, Any]] = {}
+        self._exports_lock = threading.Lock()
+        # The port a decode peer dials for /kv; the server sets the port it
+        # actually bound (cfg.port may be 0).
+        self.advertised_port = cfg.port
+        # Per-request pull stats (request_id -> {ms, bytes, route[,
+        # exposed_ms]}), written by the fetch thread, popped by the server
+        # for x-kv-pull-*. Bounded ring.
+        self.kv_import_stats: dict[str, dict[str, Any]] = {}
+        self._kv_import_order: collections.deque[str] = collections.deque()
 
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
@@ -124,6 +178,10 @@ class TorchEngine:
         self.slots: list[_Slot | None] = [None] * cfg.max_batch
         self._waiting: list[tuple[EngineRequest, asyncio.Queue, asyncio.AbstractEventLoop]] = []
         self._abort_ids: set[str] = set()
+        # Pulled (or failed) imports waiting for a slot, and pulls in flight
+        # on fetch threads (both keep the drain gate closed).
+        self._import_ready: list[_PendingImport] = []
+        self._kv_fetching = 0
         self._cond = threading.Condition()
         self._stop = False
         self._thread: threading.Thread | None = None
@@ -145,9 +203,14 @@ class TorchEngine:
             self._thread.join(timeout=30)
 
     def idle(self) -> bool:
-        """True when nothing is admitted or queued (the SIGTERM drain gate)."""
+        """True when nothing is admitted, queued, importing or fetching and
+        no export is held for a decode peer (the SIGTERM drain gate)."""
         with self._cond:
-            return not (any(s is not None for s in self.slots) or self._waiting)
+            if (any(s is not None for s in self.slots) or self._waiting
+                    or self._import_ready or self._kv_fetching):
+                return False
+        with self._exports_lock:
+            return not self.kv_exports
 
     def submit(self, req: EngineRequest) -> asyncio.Queue:
         """Thread-safe enqueue; returns the per-request event queue."""
@@ -168,6 +231,15 @@ class TorchEngine:
             self._abort_ids.add(request_id)
             self._cond.notify()
 
+    def release_kv_export(self, request_id: str) -> None:
+        """Drop a staged P/D export once the decode side has pulled it."""
+        with self._exports_lock:
+            self.kv_exports.pop(request_id, None)
+
+    def get_kv_export(self, request_id: str) -> dict[str, Any] | None:
+        with self._exports_lock:
+            return self.kv_exports.get(request_id)
+
     # ---- engine thread -------------------------------------------------
 
     def _emit(self, slot: _Slot, ev: TokenEvent):
@@ -181,8 +253,10 @@ class TorchEngine:
             while True:
                 with self._cond:
                     while (not self._stop and not self._waiting
+                           and not self._import_ready
                            and not self._abort_ids and not any(self.slots)):
                         self._cond.wait(timeout=0.1)
+                        self._sweep_exports()
                     if self._stop:
                         return
                 try:
@@ -192,9 +266,13 @@ class TorchEngine:
                     self._abort_all()
 
     def _step(self):
+        self._sweep_exports()
         self._process_aborts()
+        self._process_imports()
         self._admit()
-        if any(s is not None and s.pending_tok is None for s in self.slots):
+        self._advance_prefills()
+        if any(s is not None and s.pending_tok is None and not s.prefilling
+               for s in self.slots):
             # Queue the decode chunk of the established lanes, then land the
             # pending first tokens (the chunk's readback synchronised them).
             self._decode_once()
@@ -203,7 +281,7 @@ class TorchEngine:
             self._finalize_prefills()
         else:
             with self._cond:
-                if self._waiting and not self._abort_ids:
+                if (self._waiting or self._import_ready) and not self._abort_ids:
                     # Head-of-line can't be placed yet: sleep until it can.
                     self._cond.wait(timeout=0.05)
 
@@ -214,11 +292,22 @@ class TorchEngine:
         with self._cond:
             drained, self._waiting = self._waiting, []
             self.telemetry.waiting.set(0)
+            imports, self._import_ready = self._import_ready, []
+        drained += [(pi.req, pi.out, pi.loop) for pi in imports]
         for req, out, loop in drained:
             self._emit_to(out, loop, TokenEvent(
                 request_id=req.request_id, token_id=None,
                 finish_reason=FinishReason.ABORT,
                 prompt_tokens=len(req.prompt_token_ids)))
+
+    def _sweep_exports(self):
+        now = time.monotonic()
+        with self._exports_lock:
+            expired = [rid for rid, rec in self.kv_exports.items()
+                       if now - rec["created"] > KV_EXPORT_TTL_S]
+            for rid in expired:
+                log.warning("kv export %s expired unclaimed; dropping", rid)
+                self.kv_exports.pop(rid, None)
 
     def _process_aborts(self):
         with self._cond:
@@ -245,7 +334,11 @@ class TorchEngine:
     def _blocks_needed(self, req: EngineRequest) -> int:
         total = min(len(req.prompt_token_ids) + req.max_tokens,
                     self.cfg.max_model_len)
-        return self.allocator.blocks_for_tokens(total)
+        need = self.allocator.blocks_for_tokens(total)
+        ktp = req.kv_transfer_params or {}
+        if ktp.get("remote_num_blocks"):
+            need = max(need, int(ktp["remote_num_blocks"]))
+        return need
 
     def _record_queue_wait(self, request_id: str) -> None:
         """First-pop-wins admission wait, popped by the server for
@@ -277,6 +370,13 @@ class TorchEngine:
                         request_id=req.request_id, token_id=None,
                         finish_reason=FinishReason.ABORT,
                         prompt_tokens=len(req.prompt_token_ids)))
+                    continue
+                if (req.kv_transfer_params or {}).get("remote_host") is not None:
+                    # Pull off-thread; the KV comes back via _import_ready.
+                    self._waiting.pop(0)
+                    self.telemetry.waiting.set(len(self._waiting))
+                    self._record_queue_wait(req.request_id)
+                    self._start_kv_fetch(req, out, loop)
                     continue
                 available = getattr(self.allocator, "reusable_blocks",
                                     self.allocator.free_blocks)
@@ -325,6 +425,21 @@ class TorchEngine:
         cached_tokens = len(matched_bids) * block
         suffix = prompt[cached_tokens:]
         self.kv_hits.note(req.request_id, cached_tokens, len(prompt))
+        if matched_bids:
+            self.telemetry.prefix_cached_tokens.inc(cached_tokens)
+
+        win = self._prefill_window()
+        if win and len(suffix) > win:
+            # Long prompt: park the slot PREFILLING; _advance_prefills
+            # writes one window per engine step (interleaved with decode).
+            self.slots[idx] = _Slot(
+                req=req, out=out, loop=loop, blocks=blocks, position=len(prompt),
+                generated=[], last_token=-1, cached_tokens=cached_tokens,
+                prompt_len=len(prompt), prefilling=True, prefill_rest=list(suffix),
+                prefill_written=cached_tokens, chunk_meta=(hashes, caching))
+            self.telemetry.running.set(sum(s is not None for s in self.slots))
+            return
+
         row = np.zeros((1, self.max_blocks_per_seq), np.int32)
         row[0, : len(blocks)] = blocks
         try:
@@ -359,7 +474,9 @@ class TorchEngine:
 
     def _run_prefill(self, req, prompt, suffix, cached_tokens, matched_bids,
                      row) -> torch.Tensor:
-        """Prefill + first-token sample; returns the token on the device."""
+        """Prefill + first-token sample; returns the token on the device.
+        With ``matched_bids`` the suffix continues from the KV of those
+        (cached or already written) blocks, else the whole prompt runs."""
         t0 = time.monotonic()
         knobs = SamplingKnobs.from_numpy(*self._sample_np([req]), self.device)
         row_t = self._to_dev(row)
@@ -371,7 +488,6 @@ class TorchEngine:
                 self._to_dev(np.asarray([cached_tokens], np.int32)),
                 self.k_pages, self.v_pages, row_t,
                 self._to_dev(np.asarray([matched_bids], np.int32)))
-            self.telemetry.prefix_cached_tokens.inc(cached_tokens)
         else:
             hidden, (k_new, v_new) = llama.forward(
                 self.params, self.mcfg,
@@ -390,7 +506,7 @@ class TorchEngine:
     def _finalize_prefills(self):
         """Land pending first tokens and emit/finish accordingly."""
         for idx, slot in enumerate(self.slots):
-            if slot is None or slot.pending_tok is None:
+            if slot is None or slot.pending_tok is None or slot.prefilling:
                 continue
             tok = int(slot.pending_tok.item())
             slot.pending_tok = None
@@ -399,6 +515,11 @@ class TorchEngine:
             req = slot.req
             self.telemetry.ttft.observe(time.monotonic() - req.arrival_time)
             self.telemetry.generation_tokens.inc()
+            if (req.kv_transfer_params or {}).get("do_remote_decode"):
+                # Remote-decode prefill: hand the KV off instead of decoding.
+                self._finish_slot(idx, FinishReason.LENGTH,
+                                  retain_for_transfer=True, first_token=tok)
+                continue
             self._emit(slot, TokenEvent(
                 request_id=req.request_id, token_id=tok,
                 text=self.tokenizer.decode([tok]), is_first=True,
@@ -406,6 +527,381 @@ class TorchEngine:
                 cached_tokens=slot.cached_tokens))
             slot.first_emitted = True
             self._maybe_finish_after_token(idx, tok)
+
+    # ---- incremental prefill -------------------------------------------
+
+    def _prefill_window(self) -> int:
+        """Incremental-prefill window in tokens (a KV-block multiple, so every
+        intermediate boundary is block-aligned); 0 = disabled."""
+        w = self.cfg.prefill_chunk
+        if w <= 0:
+            return 0
+        block = self.mcfg.kv_block_size
+        return max(block, -(-w // block) * block)
+
+    def _advance_prefills(self):
+        """Write ONE window for the first PREFILLING slot. The last window's
+        sample becomes the pending first token (earlier windows' samples are
+        discarded); the prefix-cache commit waits for it."""
+        for idx, s in enumerate(self.slots):
+            if s is None or not s.prefilling:
+                continue
+            block = self.mcfg.kv_block_size
+            window = s.prefill_rest[: self._prefill_window()]
+            last = len(window) == len(s.prefill_rest)
+            written = s.prefill_written
+            req = s.req
+            row = np.zeros((1, self.max_blocks_per_seq), np.int32)
+            row[0, : len(s.blocks)] = s.blocks
+            try:
+                # The first window runs the whole-prompt path; later ones
+                # continue from the blocks already written (block-aligned).
+                tok_dev = self._run_prefill(req, window, window, written,
+                                            s.blocks[: written // block], row)
+            except Exception:
+                self.slots[idx] = None
+                self._drop_partial_export(req.request_id)
+                with self._cond:
+                    self.allocator.free(s.blocks)
+                    self.telemetry.observe_allocator(self.allocator)
+                self._emit_to(s.out, s.loop, TokenEvent(
+                    request_id=req.request_id, token_id=None,
+                    finish_reason=FinishReason.ABORT, prompt_tokens=s.prompt_len))
+                self.telemetry.running.set(sum(x is not None for x in self.slots))
+                raise
+            self.telemetry.prompt_tokens.inc(len(window))
+            s.prefill_written = written + len(window)
+            s.prefill_rest = s.prefill_rest[len(window):]
+            if not last:
+                # A chunk-streamed export stages the window's newly complete
+                # blocks now; the final partial block rides _finish_slot.
+                self._maybe_stage_chunk(s)
+                return
+            hashes, caching = s.chunk_meta
+            s.chunk_meta = None
+            s.prefilling = False
+            s.pending_tok = tok_dev
+            if caching:
+                n_complete = s.prompt_len // block
+                matched_n = s.cached_tokens // block
+                with self._cond:
+                    self.allocator.commit_hashes(s.blocks[matched_n:n_complete],
+                                                 hashes[matched_n:n_complete])
+            return  # one window per step
+
+    # ---- P/D export (prefill side) ---------------------------------------
+
+    def _gather_to_host(self, ids: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """The pages of ``ids`` as host tensors [L, len(ids), block, Hkv, Dh].
+        Blocks the engine thread until the device has written them (the copy
+        waits behind any decode chunk already queued)."""
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        return self.k_pages[:, idx].cpu(), self.v_pages[:, idx].cpu()
+
+    def _maybe_stage_chunk(self, s: _Slot) -> None:
+        """Chunk-streamed remote-decode prefill (``stream_chunks``): gather the
+        newly COMPLETE blocks to the host and append them to the request's
+        export record, created at the first chunk (``complete=False``) so the
+        drain gate holds the engine for the decode peer from then on."""
+        ktp = s.req.kv_transfer_params or {}
+        if not (ktp.get("do_remote_decode") and ktp.get("stream_chunks")):
+            return
+        rid = s.req.request_id
+        with self._exports_lock:
+            rec = self.kv_exports.get(rid)
+        upto = min(s.prefill_written // self.mcfg.kv_block_size, len(s.blocks))
+        staged = rec["blocks_staged"] if rec is not None else 0
+        if upto <= staged:
+            return
+        if rec is None:
+            rec = {"created": time.monotonic(), "seq_len": s.prompt_len,
+                   "num_blocks": len(s.blocks), "chunk_data": [],
+                   "chunk_blocks": [], "chunks_staged": 0, "blocks_staged": 0,
+                   "complete": False}
+            with self._exports_lock:
+                self.kv_exports[rid] = rec
+        k, v = self._gather_to_host(s.blocks[staged:upto])
+        # Data BEFORE the counters: the /kv long-poll reads chunks_staged
+        # without the lock, and a reader that sees N chunks must find N.
+        rec["chunk_data"].append((k, v))
+        rec["chunk_blocks"].append(upto - staged)
+        rec["blocks_staged"] = upto
+        rec["chunks_staged"] += 1
+
+    def _stage_kv(self, request_id: str, ids: list[int], *, stream: bool,
+                  meta: dict[str, Any]) -> dict[str, Any]:
+        """Stage a finished remote-decode prefill's blocks (``ids``,
+        pow2-padded) on the host as its export record. A chunk-streamed
+        export keeps the chunks already staged and reads incomplete until
+        _finalize_chunk_export stages the tail."""
+        k, v = self._gather_to_host(ids)
+        rec = {"k": k, "v": v, "created": time.monotonic(), **meta}
+        with self._exports_lock:
+            prev = self.kv_exports.get(request_id)
+            if prev is not None and "chunks_staged" in prev:
+                for key in ("chunk_data", "chunk_blocks", "chunks_staged",
+                            "blocks_staged"):
+                    rec[key] = prev[key]
+                rec["complete"] = False
+            elif stream:
+                # A short stream_chunks prompt (no mid-prefill chunks): a
+                # puller may already be polling its pre-assigned id.
+                rec.update({"chunk_data": [], "chunk_blocks": [],
+                            "chunks_staged": 0, "blocks_staged": 0,
+                            "complete": False})
+            self.kv_exports[request_id] = rec
+        return rec
+
+    @staticmethod
+    def _finalize_chunk_export(rec: dict[str, Any], n_blocks: int) -> None:
+        """The blocks not staged yet (the final partial block included)
+        become the last chunk, sliced from the full staged tensors; then
+        ``complete`` flips and the decode peer's long-poll ends."""
+        staged = rec["blocks_staged"]
+        if n_blocks > staged:
+            rec["chunk_data"].append((rec["k"][:, staged:n_blocks],
+                                      rec["v"][:, staged:n_blocks]))
+            rec["chunk_blocks"].append(n_blocks - staged)
+            rec["blocks_staged"] = n_blocks
+            rec["chunks_staged"] += 1
+        rec["complete"] = True
+
+    def _drop_partial_export(self, request_id: str) -> None:
+        """Reclaim a partly staged chunk export whose prefill died: the decode
+        peer's next poll 404s and it falls back to local prefill. Completed
+        exports stay for the importer's release or the TTL sweep."""
+        with self._exports_lock:
+            rec = self.kv_exports.get(request_id)
+            if rec is not None and not rec.get("complete", True):
+                self.kv_exports.pop(request_id, None)
+
+    # ---- P/D import (decode side) ----------------------------------------
+
+    def _start_kv_fetch(self, req, out, loop):
+        """Pull the exporter's staged KV on a thread of its own (the engine
+        thread keeps decoding meanwhile)."""
+        pi = _PendingImport(req=req, out=out, loop=loop)
+        with self._cond:
+            self._kv_fetching += 1
+
+        def fetch():
+            try:
+                self._fetch(pi, req.kv_transfer_params or {})
+            finally:
+                with self._cond:
+                    self._kv_fetching -= 1
+                    self._cond.notify()
+
+        threading.Thread(target=fetch, name="kv-fetch", daemon=True).start()
+
+    KV_IMPORT_STATS_CAP = 512
+    # Overall stall bound of one chunk-streamed pull (each poll is bounded by
+    # the server's KV_CHUNK_WAIT_CAP_MS).
+    KV_CHUNK_STREAM_TIMEOUT_S = 120.0
+
+    def _note_kv_import(self, request_id: str, t0: float, nbytes: int,
+                        route: str, exposed_ms: float | None = None) -> None:
+        """Record one pull's duration and bytes for x-kv-pull-* on the decode
+        response; chunk-streamed pulls also carry the non-overlapped tail."""
+        if request_id not in self.kv_import_stats:
+            self._kv_import_order.append(request_id)
+        stats = {"ms": (time.monotonic() - t0) * 1e3, "bytes": int(nbytes),
+                 "route": route}
+        if exposed_ms is not None:
+            stats["exposed_ms"] = exposed_ms
+        self.kv_import_stats[request_id] = stats
+        while len(self._kv_import_order) > self.KV_IMPORT_STATS_CAP:
+            self.kv_import_stats.pop(self._kv_import_order.popleft(), None)
+
+    def _fetch(self, pi: _PendingImport, ktp: dict[str, Any]) -> None:
+        """Fetch-thread body: pull over the exporter's /kv route (whole, or
+        chunk by chunk), release the export, and hand the import to the
+        engine thread; any failure is recorded on ``pi`` (local prefill)."""
+        t0 = time.monotonic()
+        try:
+            scheme = ktp.get("remote_scheme") or "http"
+            if scheme != "http":
+                raise ValueError(f"{scheme} /kv pull: this engine dials http only")
+            path = "/kv/" + urllib.parse.quote(str(ktp["remote_request_id"]), safe="")
+            with kv_wire.KvClient(ktp["remote_host"], ktp["remote_port"]) as c:
+                if ktp.get("stream_chunks"):
+                    self._pull_host_chunks(pi, c, path, t0)
+                else:
+                    self._pull_full(pi, c, path, t0)
+                try:
+                    c.delete(path)
+                except (OSError, http.client.HTTPException, kv_wire.KvHTTPError):
+                    pass  # the exporter's TTL sweep reclaims it
+        except Exception as e:
+            pi.error = f"{type(e).__name__}: {e}"
+        with self._cond:
+            self._import_ready.append(pi)
+            self._cond.notify()
+
+    def _pull_full(self, pi: _PendingImport, c: kv_wire.KvClient, path: str,
+                   t0: float) -> None:
+        status, headers, body = c.get(path)
+        if status != 200:
+            raise ValueError(f"GET {path} answered {status}")
+        shape = tuple(int(d) for d in json.loads(headers["x-kv-shape"]))
+        pi.kv = kv_wire.decode_kv(body, kv_wire.dtype_from_name(headers["x-kv-dtype"]),
+                                  shape)
+        pi.headers = headers
+        self._note_kv_import(pi.req.request_id, t0, len(body), "host")
+
+    def _pull_host_chunks(self, pi: _PendingImport, c: kv_wire.KvClient,
+                          path: str, t0: float) -> None:
+        """Pipelined pull: long-poll ``?chunk=N`` so chunk k moves while the
+        exporter computes chunk k+1, then join the chunks along the block axis
+        (per layer) and synthesise the geometry headers of a full GET. An exporter that staged no chunks
+        completes with zero: fall back to the full GET."""
+        ks: list[torch.Tensor] = []
+        vs: list[torch.Tensor] = []
+        chunk = nbytes = 0
+        complete_at: float | None = None
+        dtype = None
+        meta: dict[str, str] = {}
+        deadline = t0 + self.KV_CHUNK_STREAM_TIMEOUT_S
+        while True:
+            if time.monotonic() > deadline:
+                raise TimeoutError("kv chunk stream stalled")
+            status, hdrs, body = c.get(path, chunk=chunk, wait_ms=2000)
+            if status == 202:  # chunk not staged yet: poll again
+                continue
+            if status == 204:  # complete, no further chunk
+                meta = hdrs
+                complete_at = complete_at or time.monotonic()
+                break
+            if hdrs.get("x-kv-complete") == "1" and complete_at is None:
+                complete_at = time.monotonic()
+            if hdrs.get("x-kv-chunk-shape"):
+                # Each chunk is [L, chunk_blocks, ...] K then V: joined along
+                # the block axis below, per layer.
+                dtype = hdrs["x-kv-dtype"]
+                k, v = kv_wire.decode_kv(
+                    body, kv_wire.dtype_from_name(dtype),
+                    tuple(int(d) for d in json.loads(hdrs["x-kv-chunk-shape"])))
+                ks.append(k)
+                vs.append(v)
+                nbytes += len(body)
+            chunk += 1
+            if (hdrs.get("x-kv-complete") == "1"
+                    and chunk >= int(hdrs.get("x-kv-chunks-staged") or 0)):
+                meta = hdrs
+                break
+        if not ks:
+            self._pull_full(pi, c, path, t0)
+            return
+        pi.kv = (torch.cat(ks, 1), torch.cat(vs, 1))
+        pi.headers = {
+            "x-kv-shape": json.dumps(list(pi.kv[0].shape)),
+            "x-kv-seq-len": meta["x-kv-seq-len"],
+            "x-kv-dtype": str(dtype),
+            "x-kv-real-blocks": str(pi.kv[0].shape[1]),
+            "x-kv-first-token": meta.get("x-kv-first-token", ""),
+        }
+        exposed_ms = (time.monotonic() - max(complete_at or t0, t0)) * 1e3
+        self._note_kv_import(pi.req.request_id, t0, nbytes, "host-chunked",
+                             exposed_ms=exposed_ms)
+
+    def _process_imports(self):
+        while True:
+            free = [i for i, s in enumerate(self.slots) if s is None]
+            with self._cond:
+                if not self._import_ready or not free:
+                    return
+                pi = self._import_ready[0]
+                blocks: list[int] = []
+                if pi.error is None:
+                    need = self._blocks_needed(pi.req)
+                    available = getattr(self.allocator, "reusable_blocks",
+                                        self.allocator.free_blocks)
+                    if need > available:
+                        return  # wait for capacity
+                    blocks = self.allocator.alloc(need)
+                    self.telemetry.observe_allocator(self.allocator)
+                self._import_ready.pop(0)
+            if pi.error is None:
+                try:
+                    self._import_into_slot(free[0], pi, blocks)
+                    continue
+                except Exception as e:
+                    # Malformed payload or geometry mismatch: reclaim the
+                    # allocation and prefill locally.
+                    with self._cond:
+                        self.allocator.free(blocks)
+                        self.telemetry.observe_allocator(self.allocator)
+                    pi.error = f"import rejected: {e}"
+            log.warning("kv import for %s failed (%s); local prefill fallback",
+                        pi.req.request_id, pi.error)
+            with self._cond:
+                self._waiting.insert(0, (self._strip_remote(pi.req), pi.out, pi.loop))
+                self.telemetry.waiting.set(len(self._waiting))
+
+    @staticmethod
+    def _strip_remote(req: EngineRequest) -> EngineRequest:
+        return dataclasses.replace(req, kv_transfer_params=None)
+
+    def _validate_kv_geometry(self, shape, seq_len: int, real_nb: int,
+                              n_alloc: int):
+        """``shape``'s block dim may be pow2-padded; ``real_nb`` is the real
+        count, which must fit the local allocation."""
+        if len(shape) != 5:
+            raise ValueError(f"bad kv shape {shape}")
+        L, nb, block, Hkv, Dh = shape
+        if (L, block, Hkv, Dh) != (self.mcfg.n_layers, self.mcfg.kv_block_size,
+                                   self.mcfg.n_kv_heads, self.mcfg.head_dim):
+            raise ValueError(f"kv geometry mismatch: {shape} vs model "
+                             f"(L={self.mcfg.n_layers}, block={self.mcfg.kv_block_size}, "
+                             f"Hkv={self.mcfg.n_kv_heads}, Dh={self.mcfg.head_dim})")
+        if not (0 < real_nb <= nb):
+            raise ValueError(f"real block count {real_nb} outside padded {nb}")
+        if nb > self.max_blocks_per_seq or real_nb > n_alloc:
+            raise ValueError(f"{real_nb}/{nb} exported blocks exceed budget "
+                             f"(maxB={self.max_blocks_per_seq}, alloc={n_alloc})")
+        if not (0 < seq_len <= real_nb * block):
+            raise ValueError(f"kv seq_len {seq_len} outside exported blocks")
+        return L, nb, block, Hkv, Dh
+
+    def _import_into_slot(self, idx: int, pi: _PendingImport, blocks: list[int]):
+        """Validate the pulled KV, copy its real blocks into ``blocks`` (host
+        to device, then an in-place index_put_ on the pages) and emit the
+        exporter's first token; raises on any malformed or mismatched import
+        (the caller falls back to local prefill)."""
+        req, headers = pi.req, pi.headers or {}
+        ktp = req.kv_transfer_params or {}
+        k, v = pi.kv
+        seq_len = int(headers["x-kv-seq-len"])
+        real_nb = int(headers.get("x-kv-real-blocks") or k.shape[1])
+        self._validate_kv_geometry(tuple(k.shape), seq_len, real_nb, len(blocks))
+        first = int(ktp["remote_first_token"]
+                    if ktp.get("remote_first_token") is not None
+                    else headers["x-kv-first-token"])
+        ids = torch.tensor(blocks[:real_nb], dtype=torch.long, device=self.device)
+        self.k_pages[:, ids] = k[:, :real_nb].to(self.device, self.dtype)
+        self.v_pages[:, ids] = v[:, :real_nb].to(self.device, self.dtype)
+        pi.kv = None
+
+        slot = _Slot(req=req, out=pi.out, loop=pi.loop, blocks=blocks,
+                     position=seq_len, generated=[first], last_token=first,
+                     cached_tokens=seq_len, prompt_len=seq_len)
+        if isinstance(self.allocator, PrefixCachingAllocator):
+            block = self.mcfg.kv_block_size
+            hashes = chain_block_hashes(self.model_name,
+                                        req.prompt_token_ids[:seq_len], "", block)
+            n_complete = seq_len // block
+            with self._cond:
+                self.allocator.commit_hashes(blocks[:n_complete],
+                                             hashes[:n_complete])
+        self.slots[idx] = slot
+        self.telemetry.running.set(sum(s is not None for s in self.slots))
+        self.telemetry.ttft.observe(time.monotonic() - req.arrival_time)
+        self._emit(slot, TokenEvent(
+            request_id=req.request_id, token_id=first,
+            text=self.tokenizer.decode([first]), is_first=True,
+            prompt_tokens=seq_len, completion_tokens=1, cached_tokens=seq_len))
+        slot.first_emitted = True
+        self._maybe_finish_after_token(idx, first)
 
     # ---- decode --------------------------------------------------------
 
@@ -442,7 +938,7 @@ class TorchEngine:
 
     def _decode_once(self):
         active = [i for i, s in enumerate(self.slots)
-                  if s is not None and s.pending_tok is None]
+                  if s is not None and s.pending_tok is None and not s.prefilling]
         B = self._batch_bucket(len(active))
         W = self.max_blocks_per_seq
         tokens = np.zeros((B,), np.int32)
@@ -499,19 +995,63 @@ class TorchEngine:
         if reason is not None:
             self._finish_slot(idx, reason)
 
-    def _finish_slot(self, idx: int, reason: FinishReason):
+    def _finish_slot(self, idx: int, reason: FinishReason, *,
+                     retain_for_transfer: bool = False,
+                     first_token: int | None = None):
         s = self.slots[idx]
         self.slots[idx] = None
+        kv_params = None
+        if retain_for_transfer:
+            kv_params = self._export(s, first_token)
+        else:
+            # Abort of a chunk-streaming prefill: reclaim its partial export.
+            self._drop_partial_export(s.req.request_id)
         with self._cond:
             self.allocator.free(s.blocks)
             self.telemetry.observe_allocator(self.allocator)
             self._cond.notify()  # capacity freed: wake admission
         self.telemetry.running.set(sum(x is not None for x in self.slots))
         self.telemetry.request_success.labels(finished_reason=reason.value).inc()
-        self._emit(s, TokenEvent(
+        ev = TokenEvent(
             request_id=s.req.request_id, token_id=None, finish_reason=reason,
+            kv_transfer_params=kv_params,
             prompt_tokens=len(s.req.prompt_token_ids),
-            completion_tokens=len(s.generated)))
+            completion_tokens=len(s.generated))
+        if retain_for_transfer and first_token is not None:
+            ev.token_id = first_token
+            ev.text = self.tokenizer.decode([first_token])
+        self._emit(s, ev)
+
+    def _export(self, s: _Slot, first_token: int) -> dict[str, Any]:
+        """Stage a finished remote-decode prefill for pickup and return the
+        ``kv_transfer_params`` that name it. The block count pads to a power
+        of two, the tail on the trash block 0, as the JAX exporter does."""
+        bucket = 1
+        while bucket < len(s.blocks):
+            bucket *= 2
+        bucket = min(bucket, self.max_blocks_per_seq)
+        padded = list(s.blocks) + [0] * (bucket - len(s.blocks))
+        rid = s.req.request_id
+        rec = self._stage_kv(
+            rid, padded,
+            stream=bool((s.req.kv_transfer_params or {}).get("stream_chunks")),
+            meta={"num_blocks": len(s.blocks),  # real (un-padded) count
+                  "seq_len": s.position,        # prompt tokens in cache
+                  "first_token": first_token})
+        if "chunks_staged" in rec:
+            # After the metadata: a puller that sees complete=1 always finds
+            # seq_len and first_token.
+            self._finalize_chunk_export(rec, len(s.blocks))
+        return {
+            "remote_engine_id": self.engine_id,
+            "remote_request_id": rid,
+            "remote_num_blocks": len(s.blocks),
+            "remote_seq_len": s.position,
+            "remote_first_token": first_token,
+            "remote_host": self.cfg.host,
+            "remote_port": self.advertised_port,
+            "remote_scheme": "http",
+        }
 
 
 _DUMMY_REQ = EngineRequest(request_id="__pad__", prompt_token_ids=[0])

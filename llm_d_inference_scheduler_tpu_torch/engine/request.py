@@ -1,12 +1,13 @@
 """Engine-side request/response types (copy of
-``llm_d_inference_scheduler_tpu/engine/request.py`` without the P/D and
-multimodal fields this slice does not serve)."""
+``llm_d_inference_scheduler_tpu/engine/request.py`` without the multimodal
+and shared-storage fields the port does not serve)."""
 
 from __future__ import annotations
 
 import dataclasses
 import enum
 import time
+from typing import Any
 
 
 class FinishReason(str, enum.Enum):
@@ -26,6 +27,10 @@ class EngineRequest:
     stop_token_ids: tuple[int, ...] = ()
     ignore_eos: bool = False   # benchmark/test knob (vLLM-compatible)
     stream: bool = False
+    # P/D disaggregation handshake, relayed by the router's sidecar: the
+    # prefill leg sends {"do_remote_decode": true[, "stream_chunks": true]},
+    # the decode leg the exporter's remote_* fields (engine/core.py).
+    kv_transfer_params: dict[str, Any] | None = None
     arrival_time: float = dataclasses.field(default_factory=time.monotonic)
 
 
@@ -38,6 +43,8 @@ class TokenEvent:
     finish_reason: FinishReason | None = None
     # Set on the first event so servers can report TTFT.
     is_first: bool = False
+    # Terminal event may carry KV handoff params back to the sidecar.
+    kv_transfer_params: dict[str, Any] | None = None
     # usage accounting
     prompt_tokens: int = 0
     completion_tokens: int = 0

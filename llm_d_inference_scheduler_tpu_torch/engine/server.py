@@ -7,11 +7,17 @@ with the same JSON shapes, so the router schedules onto either engine alike:
   (``"stream": true``), with stop strings (a stop spanning token boundaries
   is held back, never leaked) and ``usage.prompt_tokens_details``;
 - ``GET /v1/models``, ``/metrics`` (Prometheus text, ``jetstream:*`` names)
-  and ``/health``.
+  and ``/health``;
+- the P/D KV handoff: ``kv_transfer_params`` relayed into the request and out
+  of the response, ``GET /kv/{request_id}`` (the whole export, or with
+  ``?chunk=N`` / ``?ack=1`` the chunk-streamed long-poll: 200, 202 on wait
+  expiry, 204 past the last chunk, 404 unknown) and
+  ``DELETE /kv/{request_id}`` (release).
 
 Non-streamed responses carry ``x-kv-hit-blocks`` / ``x-kv-hit-tokens`` and
-``x-engine-queue-ms``. HTTP/1.1 with keep-alive; SSE bodies use chunked
-transfer encoding. The server is built on ``asyncio`` streams so that
+``x-engine-queue-ms``, and a decode leg that pulled KV ``x-kv-pull-ms``,
+``-bytes``, ``-route`` (and ``-exposed-ms`` for a chunk-streamed pull).
+HTTP/1.1 with keep-alive; SSE bodies use chunked transfer encoding. The server is built on ``asyncio`` streams so that
 serving needs no HTTP package beyond the standard library.
 
 Run: ``python -m llm_d_inference_scheduler_tpu_torch.engine.server --model llama3-8b``
@@ -24,17 +30,19 @@ import asyncio
 import json
 import logging
 import time
+import urllib.parse
 import uuid
 from typing import Any
 
+from . import kv_wire
 from .config import EngineConfig
 from .request import EngineRequest, FinishReason, TokenEvent
 from .telemetry import CONTENT_TYPE as METRICS_CONTENT_TYPE
 
 log = logging.getLogger("engine.torch.server")
 
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
-            405: "Method Not Allowed", 413: "Payload Too Large",
+_REASONS = {200: "OK", 202: "Accepted", 204: "No Content", 400: "Bad Request",
+            404: "Not Found", 405: "Method Not Allowed", 413: "Payload Too Large",
             500: "Internal Server Error", 503: "Service Unavailable"}
 MAX_BODY = 64 << 20
 
@@ -84,11 +92,15 @@ def _chat_to_prompt(messages: list[dict[str, Any]], *,
 
 
 class _Conn:
-    """One HTTP response being written on a client connection."""
+    """One HTTP response being written on a client connection, with the
+    request's path and query."""
 
-    def __init__(self, writer: asyncio.StreamWriter, keep_alive: bool):
+    def __init__(self, writer: asyncio.StreamWriter, keep_alive: bool,
+                 path: str = "", query: dict[str, str] | None = None):
         self.writer = writer
         self.keep_alive = keep_alive
+        self.path = path
+        self.query = query or {}
 
     def _head(self, status: int, headers: dict[str, str]) -> bytes:
         lines = [f"HTTP/1.1 {status} {_REASONS.get(status, 'OK')}"]
@@ -97,11 +109,20 @@ class _Conn:
         lines += [f"{k}: {v}" for k, v in headers.items()]
         return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
 
-    async def send(self, status: int, body: bytes, content_type: str,
+    async def send(self, status: int, body: bytes | tuple, content_type: str,
                    headers: dict[str, str] | None = None) -> None:
-        h = {"Content-Type": content_type, "Content-Length": str(len(body)),
-             **(headers or {})}
-        self.writer.write(self._head(status, h) + body)
+        """A response whose body is bytes or a tuple of buffers (written as
+        they are, without joining them); a 204 carries no body."""
+        parts = body if isinstance(body, tuple) else (body,)
+        h = dict(headers or {})
+        if status != 204:
+            h = {"Content-Type": content_type,
+                 "Content-Length": str(sum(memoryview(p).nbytes for p in parts)),
+                 **h}
+        self.writer.write(self._head(status, h))
+        if status != 204:
+            for p in parts:
+                self.writer.write(p)
         await self.writer.drain()
 
     async def send_json(self, obj: Any, status: int = 200,
@@ -146,6 +167,8 @@ class EngineServer:
             ("GET", "/v1/models"): self.models,
             ("GET", "/metrics"): self.metrics,
             ("GET", "/health"): self.health,
+            ("GET", "/kv/"): self.kv_fetch,
+            ("DELETE", "/kv/"): self.kv_release,
         }
 
     # ---- lifecycle -----------------------------------------------------
@@ -155,6 +178,7 @@ class EngineServer:
         self._server = await asyncio.start_server(self._client, self.cfg.host,
                                                   self.cfg.port)
         self.port = self._server.sockets[0].getsockname()[1]
+        self.engine.advertised_port = self.port  # what /kv peers dial
         log.info("engine %s serving %s on %s:%d", self.engine.engine_id,
                  self.engine.model_name, self.cfg.host, self.port)
 
@@ -198,7 +222,9 @@ class EngineServer:
                 headers[k.strip().lower()] = v.strip()
         keep_alive = (headers.get("connection", "").lower() != "close"
                       and version == "HTTP/1.1")
-        conn = _Conn(writer, keep_alive)
+        path, _, query = target.partition("?")
+        conn = _Conn(writer, keep_alive, path,
+                     dict(urllib.parse.parse_qsl(query, keep_blank_values=True)))
         try:
             n = int(headers.get("content-length") or 0)
         except ValueError:
@@ -215,11 +241,11 @@ class EngineServer:
             writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
             await writer.drain()
         body = await reader.readexactly(n) if n else b""
-        path = target.split("?", 1)[0]
-        handler = self._routes.get((method, path))
+        route = "/kv/" if path.startswith("/kv/") else path
+        handler = self._routes.get((method, route))
         try:
             if handler is None:
-                known = any(p == path for _, p in self._routes)
+                known = any(p == route for _, p in self._routes)
                 raise HTTPError(405 if known else 404,
                                 f"{method} {path} not served")
             await handler(conn, body)
@@ -262,6 +288,9 @@ class EngineServer:
                 400, f"prompt is {len(prompt_ids)} tokens; this engine's "
                      f"maximum context length is {self.cfg.max_model_len} "
                      "(including at least one generated token)")
+        ktp = body.get("kv_transfer_params")
+        if ktp is not None and not isinstance(ktp, dict):
+            raise HTTPError(400, "kv_transfer_params must be a JSON object")
         try:
             return EngineRequest(
                 request_id=str(body.get("request_id") or f"req-{uuid.uuid4().hex[:12]}"),
@@ -275,6 +304,7 @@ class EngineServer:
                 stream=bool(body.get("stream", False)),
                 stop_token_ids=tuple(int(t) for t in (body.get("stop_token_ids") or ())),
                 ignore_eos=bool(body.get("ignore_eos", False)),
+                kv_transfer_params=ktp,
             )
         except (TypeError, ValueError) as e:
             raise HTTPError(400, f"invalid sampling/limit parameter: {e}")
@@ -291,9 +321,18 @@ class EngineServer:
         return None if rec is None else {"cached_tokens": rec["hit_tokens"]}
 
     def _response_headers(self, req: EngineRequest) -> dict[str, str]:
-        """x-kv-hit-* (engine-confirmed prefix hit) and x-engine-queue-ms
-        (admission wait), popped once per request."""
+        """x-kv-hit-* (engine-confirmed prefix hit), x-engine-queue-ms
+        (admission wait) and, for a decode leg that pulled KV, x-kv-pull-*
+        (the fetch thread's measurement), popped once per request."""
         out = {}
+        if (req.kv_transfer_params or {}).get("remote_host") is not None:
+            stats = self.engine.kv_import_stats.pop(req.request_id, None)
+            if stats:
+                out["x-kv-pull-ms"] = f"{stats['ms']:.2f}"
+                out["x-kv-pull-bytes"] = str(stats["bytes"])
+                out["x-kv-pull-route"] = stats["route"]
+                if stats.get("exposed_ms") is not None:
+                    out["x-kv-pull-exposed-ms"] = f"{stats['exposed_ms']:.2f}"
         rec = self.engine.kv_hits.pop(req.request_id)
         if rec is not None:
             out["x-kv-hit-blocks"] = str(rec["hit_blocks"])
@@ -308,6 +347,7 @@ class EngineServer:
         acc = ""
         n_completion, n_prompt = 0, len(req.prompt_token_ids)
         finish = FinishReason.LENGTH
+        kv_params = None
         while True:
             ev: TokenEvent = await out.get()
             if ev.token_id is not None:
@@ -322,6 +362,7 @@ class EngineServer:
             n_completion = max(n_completion, ev.completion_tokens)
             if ev.finish_reason is not None:
                 finish = ev.finish_reason
+                kv_params = ev.kv_transfer_params
                 break
         resp: dict[str, Any] = {
             "id": req.request_id,
@@ -337,6 +378,8 @@ class EngineServer:
         details = self._kv_hit_usage(req)
         if details is not None:
             resp["usage"]["prompt_tokens_details"] = details
+        if kv_params is not None:
+            resp["kv_transfer_params"] = kv_params
         return resp
 
     async def _stream(self, conn: _Conn, req: EngineRequest, out: asyncio.Queue,
@@ -471,9 +514,99 @@ class EngineServer:
         await conn.send_json({"status": status,
                               "engine_id": self.engine.engine_id,
                               "model": self.engine.model_name,
-                              # No P/D handoff yet: one engine does both.
+                              # One engine serves either P/D leg.
                               "role": "both"},
                              status=200 if status == "ok" else 503)
+
+
+    # ---- KV handoff (P/D disaggregation) --------------------------------
+
+    # Long-poll bound of the /kv chunk surface: a decode peer waits for
+    # chunk N at most this long per request, then gets a 202 and polls again.
+    KV_CHUNK_WAIT_CAP_MS = 5000.0
+
+    @staticmethod
+    def _kv_chunk_headers(rec: dict) -> dict[str, str]:
+        """Staging progress of the chunk-streamed protocol. A serial export
+        carries no chunk fields: it reads complete with zero chunks, which
+        steers a chunked puller to the full GET."""
+        h = {"x-kv-chunks-staged": str(int(rec.get("chunks_staged", 0))),
+             "x-kv-blocks-staged": str(int(rec.get("blocks_staged",
+                                                   rec.get("num_blocks") or 0))),
+             "x-kv-complete": "1" if rec.get("complete", True) else "0"}
+        if rec.get("seq_len") is not None:
+            h["x-kv-seq-len"] = str(rec["seq_len"])
+        if rec.get("first_token") is not None:
+            h["x-kv-first-token"] = str(rec["first_token"])
+        return h
+
+    async def kv_fetch(self, conn: _Conn, raw: bytes) -> None:
+        """An export's KV: K then V, each [L, n_blocks, block, Hkv, Dh] in the
+        pages' dtype, with geometry headers. ``?chunk=N`` serves staged chunk
+        N of a chunk-streamed export (204 once complete and N is past the
+        last); ``?ack=1`` answers 200 as soon as any chunk is staged or the
+        export completed. Each waits up to ``wait_ms`` (capped), then 202."""
+        rid = urllib.parse.unquote(conn.path[len("/kv/"):])
+        q = conn.query
+        try:
+            chunk = int(q["chunk"]) if "chunk" in q else None
+            wait_ms = min(float(q.get("wait_ms") or 0), self.KV_CHUNK_WAIT_CAP_MS)
+        except ValueError:
+            raise HTTPError(400, "chunk and wait_ms must be numbers")
+        ack = q.get("ack") == "1"
+        deadline = time.monotonic() + wait_ms / 1e3
+        while True:
+            rec = self.engine.get_kv_export(rid)
+            ready = False
+            if rec is not None:
+                staged = int(rec.get("chunks_staged", 0))
+                complete = bool(rec.get("complete", True))
+                if ack:
+                    ready = staged > 0 or complete
+                elif chunk is not None:
+                    ready = chunk < staged or complete
+                else:
+                    ready = complete
+            if ready or time.monotonic() >= deadline:
+                break
+            await asyncio.sleep(0.002)
+        if rec is None:
+            raise HTTPError(404, f"no kv export for {rid}")
+        headers = self._kv_chunk_headers(rec)
+        octets = "application/octet-stream"
+        if not ready:  # the wait expired mid-stream: the caller polls again
+            await conn.send(202, b"", octets, headers)
+        elif ack:
+            await conn.send(200, b"", octets, headers)
+        elif chunk is not None:
+            if chunk >= int(rec.get("chunks_staged", 0)):
+                await conn.send(204, b"", octets, headers)
+                return
+            k, v = rec["chunk_data"][chunk]
+            headers.update({"x-kv-chunk": str(chunk),
+                            "x-kv-chunk-blocks": str(int(rec["chunk_blocks"][chunk])),
+                            "x-kv-chunk-shape": json.dumps(list(k.shape)),
+                            "x-kv-dtype": kv_wire.dtype_name(k.dtype)})
+            await conn.send(200, (kv_wire.tensor_bytes(k), kv_wire.tensor_bytes(v)),
+                            octets, headers)
+        else:
+            k, v = rec["k"], rec["v"]
+            await conn.send(200, (kv_wire.tensor_bytes(k), kv_wire.tensor_bytes(v)),
+                            octets, {
+                                "x-kv-seq-len": str(rec["seq_len"]),
+                                "x-kv-num-blocks": str(k.shape[1]),
+                                "x-kv-real-blocks": str(rec.get("num_blocks", k.shape[1])),
+                                "x-kv-dtype": kv_wire.dtype_name(k.dtype),
+                                "x-kv-shape": json.dumps(list(k.shape)),
+                                "x-kv-first-token": str(rec.get("first_token")),
+                            })
+
+    async def kv_release(self, conn: _Conn, raw: bytes) -> None:
+        """Drop an export once pulled (``?consumed=`` is accepted as the JAX
+        server's; with no transfer server it changes nothing here)."""
+        rid = urllib.parse.unquote(conn.path[len("/kv/"):])
+        self.engine.release_kv_export(rid)
+        await conn.send_json({"released": rid})
 
 
 async def run_server(cfg: EngineConfig, drain_timeout_s: float = 30.0):
@@ -513,6 +646,8 @@ def main(argv: list[str] | None = None):
     p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--decode-chunk", type=int, default=8,
                    help="decode steps fused per device dispatch")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="incremental prefill window in tokens (0 = whole prompt)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain ops on the CPU")
@@ -523,7 +658,8 @@ def main(argv: list[str] | None = None):
     cfg = EngineConfig(model=args.model, served_model_name=args.served_model_name,
                        port=args.port, host=args.host, max_batch=args.max_batch,
                        max_model_len=args.max_model_len,
-                       decode_chunk=args.decode_chunk, seed=args.seed,
+                       decode_chunk=args.decode_chunk,
+                       prefill_chunk=args.prefill_chunk, seed=args.seed,
                        device=args.device, dtype=args.dtype)
     logging.basicConfig(level=logging.INFO)
     asyncio.run(run_server(cfg, drain_timeout_s=args.drain_timeout))

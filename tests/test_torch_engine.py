@@ -2,7 +2,8 @@
 
 Both engines serve TINY in f32 (a model_config.json with dtype float32) with
 the same weights (JAX ``init_params`` carried over by ``params_from_numpy``)
-and must emit exactly the same greedy tokens. Also: the port imports no JAX,
+and must emit exactly the same greedy tokens, with whole-prompt and with
+incremental prefill (``prefill_chunk``). Also: the port imports no JAX,
 asks for the card by default, and its telemetry renders the JAX engine's
 exposition.
 """
@@ -14,6 +15,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
@@ -252,3 +254,91 @@ def test_telemetry_exposition_matches_jax_engine():
         t.prefix_hit_tokens.inc(3)
         rendered.append(_normalise(t.render()))
     assert rendered[0] == rendered[1]
+
+
+# ---- incremental prefill (prefill_chunk) ------------------------------------
+
+LONG = [1] + [(j * 17) % 450 + 3 for j in range(120)]
+SHORT = [1] + [(j * 5) % 450 + 3 for j in range(30)]
+
+
+async def _long_and_short(engine, make_req):
+    """LONG submitted first, SHORT beside it; returns each one's greedy
+    tokens and the time its first token was emitted."""
+    first_at = {}
+
+    async def one(rid, prompt, n):
+        out = engine.submit(make_req(request_id=rid, prompt_token_ids=list(prompt),
+                                     max_tokens=n, temperature=0.0, ignore_eos=True))
+        toks = []
+        while True:
+            ev = await asyncio.wait_for(out.get(), timeout=120)
+            if ev.token_id is not None:
+                first_at.setdefault(rid, time.monotonic())
+                toks.append(ev.token_id)
+            if ev.finish_reason is not None:
+                return toks
+
+    lt, st = await asyncio.gather(one("L", LONG, 6), one("S", SHORT, 12))
+    return lt, st, first_at
+
+
+@pytest.fixture(scope="module")
+def chunked_prefill(tmp_path_factory):
+    """The LONG/SHORT pair on the JAX engine with prefill_chunk=32, and on
+    port engines with prefill_chunk=32 and with whole-prompt prefill; then
+    LONG twice more on the chunked port engine (the second run warm)."""
+    model_dir = tmp_path_factory.mktemp("tiny_f32_chunked")
+    fields = dataclasses.asdict(jax_configs.TINY) | {"dtype": "float32"}
+    (model_dir / "model_config.json").write_text(json.dumps(fields))
+    jparams = jax_llama.init_params(jax_configs.get_config(str(model_dir)),
+                                    jax.random.key(7))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    base = dict(model=str(model_dir), max_batch=4, max_model_len=256, decode_chunk=4)
+
+    async def run(engine, make_req, warm=False):
+        await engine.start()
+        try:
+            res = await _long_and_short(engine, make_req)
+            if not warm:
+                return res
+            rerun = []
+            for rid in ("a", "b"):
+                rerun.append(await _generate(engine, make_req, rid, LONG, 6))
+            return res, rerun
+        finally:
+            await engine.stop()
+
+    jax_eng = TpuEngine(JaxEngineConfig(**base, prefill_chunk=32, kv_events_port=0,
+                                        kv_transfer="host"), params=jparams)
+    return {
+        "jax": asyncio.run(run(jax_eng, JaxRequest)),
+        "whole": asyncio.run(run(TorchEngine(EngineConfig(**base, device="cpu"),
+                                             params=tparams), EngineRequest)),
+        "chunked": asyncio.run(run(TorchEngine(EngineConfig(**base, device="cpu",
+                                                            prefill_chunk=32),
+                                               params=tparams), EngineRequest,
+                                   warm=True)),
+    }
+
+
+def test_incremental_prefill_matches_jax_and_whole_prompt(chunked_prefill):
+    (lt, st, _), _ = chunked_prefill["chunked"]
+    assert (lt, st) == chunked_prefill["jax"][:2]
+    assert (lt, st) == chunked_prefill["whole"][:2]
+    assert len(lt) == 6 and len(st) == 12
+
+
+def test_incremental_prefill_lets_the_short_request_through(chunked_prefill):
+    """Whole-prompt prefill lands LONG's first token first; chunked prefill
+    lets SHORT's first token through between LONG's windows."""
+    _, _, whole_at = chunked_prefill["whole"]
+    (_, _, chunked_at), _ = chunked_prefill["chunked"]
+    assert whole_at["L"] <= whole_at["S"]
+    assert chunked_at["S"] < chunked_at["L"]
+
+
+def test_incremental_prefill_warm_rerun_prefix_hits(chunked_prefill):
+    (lt, _, _), ((a, _, _), (b, cached, _)) = chunked_prefill["chunked"]
+    assert a == b == lt
+    assert cached >= 112  # 7 complete blocks committed after the last window
