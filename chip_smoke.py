@@ -16,7 +16,18 @@ Phases (any failure exits non-zero):
                two layers in f32, with a tight tolerance
   5. serve     TorchEngine + the OpenAI server for llama3-8b on the card,
                4 concurrent /v1/completions requests; every kernel's launch
-               count is set to 0 just before and read just after
+               count is set to 0 just before and read just after. Run twice:
+               with kv_events_port=0, then (the main path) with KV events on
+               and a raw /kv_events subscriber attached before the requests;
+               decode tok/s of both. With events: stored covers every full
+               block of the served prompts (publish-to-receipt lag median
+               and max), a second subscriber joining afterwards learns the
+               cache from the snapshot within 2 s; render = the tokenizer,
+               greedy /v1/responses (plain and streamed) = the chat text,
+               one /v1/embeddings call per ~1100-token prompt, timed and
+               counted as a path of its own (no K1). Then a small engine (7
+               usable blocks) whose ``removed`` events must name exactly
+               the evicted hashes
   5b. pd      P/D KV handoff at llama3-8b width and depth: a prefill engine
                (prefill_chunk=256) and a decode engine behind their servers,
                driven over HTTP as the router's sidecar drives them, the
@@ -38,12 +49,16 @@ Phases (any failure exits non-zero):
                logits; every layer's MoE FFN in bf16 on the dense step's
                inputs and the first two layers in f32, tight
   8. moe serve   TorchEngine (grouped_moe=True) + the OpenAI server for
-               Mixtral (16 layers), the same 4 requests; K1 and K2 counted,
-               K2 by path (every prefill and decode step on wgmma)
+               Mixtral (16 layers), the same 4 requests and the same event,
+               surface and eviction checks as phase 5; K1 and K2 counted,
+               K2 by path (every prefill and decode step on wgmma; the
+               embeddings n_layers wgmma launches per call); the grouped
+               embeddings held against an engine with the dense FFN
 The lines before the last carry the card's name and power limit and a JSON
 object listing each kernel once for every serving path that launches it
-(the P/D decode engine's K1 launches as path "llama3-8b P/D decode"),
-with that path's launch count (K2's entry also by kernel path, and its
+(the P/D decode engine's K1 launches as path "llama3-8b P/D decode", K2's
+launches of the Mixtral /v1/embeddings calls as path
+"mixtral-8x7b-16l embeddings"), with that path's launch count (K2's entry also by kernel path, and its
 prefill-size times under prefill_*); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -459,28 +474,44 @@ def http_get(port: int, path: str) -> str:
 async def serve(cfg_model, params, card: str, *, tag: str = "serve",
                 model: str = MODEL, served: str | None = None,
                 kernels: tuple[str, ...] = ("paged_decode_attention",),
+                events: bool = True, surface: bool = True, device: str = "cuda",
                 **engine_kw) -> dict:
     """Serve ``model`` (a registry name or a model_config.json directory)
     through TorchEngine and the HTTP server; fail unless each of ``kernels``
     launched at least n_layers times per decode step and, where K2 is among
     them, its bf16 wgmma path n_layers times per prefill and decode step.
-    Returns the launch counts of this run and K2's launches by kernel path."""
+    With ``events`` a /kv_events subscriber is attached before the counted
+    requests and the events are checked after them (``check_events``), and
+    with ``surface`` too the rest of the router-facing surface
+    (``check_surface``); without ``events``, the engine runs with
+    ``kv_events_port=0``. Returns the launch counts of this run, K2's
+    launches by kernel path, the decode rate and, with ``events``, the
+    surface's results."""
     from llm_d_inference_scheduler_tpu_torch import ops
     from llm_d_inference_scheduler_tpu_torch.engine.config import EngineConfig
     from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
     from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
     from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe
 
-    cfg = EngineConfig(model=model, served_model_name=served, device="cuda", port=0,
-                       max_batch=8, max_model_len=2048, decode_chunk=8, **engine_kw)
+    cfg = EngineConfig(model=model, served_model_name=served, device=device, port=0,
+                       max_batch=8, max_model_len=2048, decode_chunk=8,
+                       kv_events_port=-1 if events else 0, **engine_kw)
     name = cfg.model_name
     engine = TorchEngine(cfg, params=params)
+    published = tap_publish(engine) if events else None
     server = EngineServer(cfg, engine=engine)
     await server.start()
+    subscriber = None
+    surface_res = None
     try:
         # Warm-up request (cuBLAS handles, allocator pools) before the count.
         await asyncio.to_thread(http_post, server.port, {
             "prompt": "warm up", "max_tokens": 9, "temperature": 0})
+        if events:
+            subscriber = SseReader(server.port)
+            await asyncio.to_thread(wait_for, lambda: engine.kv_events.hub.subscribers == 1,
+                                    10, "the /kv_events subscriber")
+            published["armed"] = True
         tel = engine.telemetry
         before = (engine.decode_steps, tel.decode_step.sum, tel.generation_tokens.value,
                   tel.ttft.sum, tel.ttft.count)
@@ -492,10 +523,18 @@ async def serve(cfg_model, params, card: str, *, tag: str = "serve",
         launches = ops.kernel_launches()
         paths = dict(grouped_moe.path_launches)
         steps = engine.decode_steps - before[0]
+        after = (tel.decode_step.sum, tel.generation_tokens.value, tel.ttft.sum,
+                 tel.ttft.count)
         metrics = await asyncio.to_thread(http_get, server.port, "/metrics")
         models = json.loads(await asyncio.to_thread(http_get, server.port, "/v1/models"))
+        if events:
+            await asyncio.to_thread(check_events, engine, subscriber, published, tag, card)
+            if surface:
+                surface_res = await check_surface(server, cfg_model, tag, card)
     finally:
         await server.stop()
+        if subscriber is not None:
+            subscriber.close()
 
     for i, res in enumerate(results):
         choice = res["json"]["choices"][0]
@@ -532,15 +571,354 @@ async def serve(cfg_model, params, card: str, *, tag: str = "serve",
     if grouped_moe.KERNEL in kernels and paths["wgmma"] < need_wgmma:
         fail(f"{tag}: the prefills and decode steps did not all go through "
              f"grouped_moe_ffn's wgmma path ({paths} < {need_wgmma})")
-    dec_s = tel.decode_step.sum - before[1]
-    dec_tokens = tel.generation_tokens.value - before[2] - len(results)
-    ttft_mean = (tel.ttft.sum - before[3]) / max(tel.ttft.count - before[4], 1)
+    dec_s = after[0] - before[1]
+    dec_tokens = after[1] - before[2] - len(results)
+    ttft_mean = (after[2] - before[3]) / max(after[3] - before[4], 1)
     stream_ttft = results[2]["ttft_s"]
-    log(f"[{tag}] {name}, {card}: 4 requests in {wall:.3f}s; engine TTFT mean "
+    rate = dec_tokens / dec_s
+    log(f"[{tag}] {name}, {card}, KV events {'on, one subscriber' if events else 'off'}: "
+        f"4 requests in {wall:.3f}s; engine TTFT mean "
         f"{ttft_mean * 1e3:.1f} ms (streamed request, client side "
         f"{stream_ttft * 1e3:.1f} ms); decode {dec_tokens:.0f} tokens in "
-        f"{dec_s:.3f}s of decode chunks = {dec_tokens / dec_s:.1f} tok/s")
-    return launches, paths
+        f"{dec_s:.3f}s of decode chunks = {rate:.1f} tok/s")
+    return {"launches": launches, "paths": paths, "tok_s": rate, "surface": surface_res}
+
+
+def serve_in_turns(cfg_model, params, card: str, tag: str, **kw) -> tuple[dict, dict]:
+    """Four serve runs in the order events off, on (the main path, with
+    the surface checks), on, off; returns the main run's result and the
+    decode tok/s of each setting in run order."""
+    rates: dict[bool, list[float]] = {False: [], True: []}
+    main_run = None
+    for i, events in enumerate((False, True, True, False)):
+        res = asyncio.run(serve(
+            cfg_model, params, card, events=events, surface=i == 1,
+            tag=tag if i == 1 else f"{tag}-{'events' if events else 'no-events'}-{i}",
+            **kw))
+        rates[events].append(round(res["tok_s"], 1))
+        if i == 1:
+            main_run = res
+    return main_run, rates
+
+
+# ---- phases 5 and 8: the router-facing surface ----------------------------
+
+# The second subscriber, joining an idle engine after the requests, must
+# learn the cache from the snapshot within this (the snapshot's period is
+# 1 s).
+SNAPSHOT_WAIT_S = 2.0
+# Mixtral embeddings, grouped (K2) against the dense-over-experts FFN on the
+# same bf16 weights, 16 layers, each pooled over a ~1100-token prompt: each
+# token's final-norm hidden state carries the two FFNs' rounding differences
+# (a few bf16 steps per layer, as in phase 7), and a token whose top-2
+# routing flips at a near-tie carries another expert's output; the mean over
+# ~1100 tokens dilutes both. Allow 5e-2 of the dense vector's largest
+# magnitude, the coarse gate phase 7 holds the logits to (MOE_LOGITS_REL_TOL).
+EMBED_REL_TOL = 5e-2
+EVICT_PROMPT_BYTES = 99   # BOS + 99 bytes = 100 tokens: 6 full blocks
+EVICT_TOKENS = 8          # 100 + 8 tokens need 7 blocks, the small pool's all
+
+
+class SseReader:
+    """A raw ``http.client`` subscriber of /kv_events on a thread of its own,
+    recording (receipt time, event document) for each data frame."""
+
+    def __init__(self, port: int):
+        import http.client
+        import threading
+
+        self.events: list[tuple[float, dict]] = []
+        self.status = None
+        self._conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+
+    def _read(self) -> None:
+        try:
+            self._conn.request("GET", "/kv_events")
+            r = self._conn.getresponse()
+            self.status = r.status
+            while True:
+                line = r.fp.readline()
+                if not line:
+                    return
+                if line.startswith(b"data: "):
+                    self.events.append((time.monotonic(), json.loads(line[6:])))
+        except (OSError, ValueError, AttributeError):
+            pass  # the stream was closed under the reader
+
+    def hashes(self, event: str) -> set[int]:
+        return {h for _, e in list(self.events) if e["event"] == event
+                for h in e["hashes"]}
+
+    def close(self) -> None:
+        import socket
+
+        if self._conn.sock is not None:
+            try:
+                self._conn.sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        self._thread.join(10)
+        self._conn.close()
+
+
+def wait_for(pred, timeout: float, what: str) -> float:
+    """Poll ``pred`` until it holds; returns the seconds it took."""
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            fail(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.005)
+    return time.monotonic() - t0
+
+
+def tap_publish(engine) -> dict:
+    """The publish times of the engine's KV events by content, recorded from
+    the moment ``armed`` is set."""
+    import collections
+
+    rec = {"armed": False, "times": collections.defaultdict(collections.deque)}
+    publish = engine.kv_events.publish
+
+    def tap(event, hashes):
+        if rec["armed"] and hashes:
+            rec["times"][(event, tuple(hashes))].append(time.monotonic())
+        publish(event, hashes)
+
+    engine.kv_events.publish = tap
+    return rec
+
+
+def event_lags_ms(subscriber: SseReader, published: dict) -> list[float]:
+    """Publish-to-receipt lag of each received event that was published
+    after arming (each receipt takes the earliest unmatched publish of the
+    same content at or before it)."""
+    lags = []
+    for t_recv, doc in list(subscriber.events):
+        q = published["times"].get((doc["event"], tuple(doc["hashes"])))
+        if q and q[0] <= t_recv:
+            lags.append((t_recv - q.popleft()) * 1e3)
+    return lags
+
+
+def check_events(engine, subscriber: SseReader, published: dict, tag: str,
+                 card: str) -> None:
+    """The served prompts' full blocks reached the subscriber as stored; a
+    second subscriber joining now learns the cache from the snapshot."""
+    from llm_d_inference_scheduler_tpu_torch.utils.hashing import chain_block_hashes
+
+    block = engine.mcfg.kv_block_size
+    want = {h for b in serve_prompts(engine.model_name)
+            for h in chain_block_hashes(engine.model_name,
+                                        engine.tokenizer.encode(b["prompt"]), "", block)}
+    wait_for(lambda: want <= subscriber.hashes("stored"), 10,
+             f"{tag}: stored events for every full block of the served prompts")
+    if subscriber.status != 200:
+        fail(f"{tag}: /kv_events answered {subscriber.status}")
+    lags = sorted(event_lags_ms(subscriber, published))
+    if not lags:
+        fail(f"{tag}: no event could be matched to its publish")
+    cached = set(engine.allocator.cached_hashes())
+    late = SseReader(engine.advertised_port)
+    try:
+        took = wait_for(lambda: cached <= late.hashes("stored"), SNAPSHOT_WAIT_S,
+                        f"{tag}: the snapshot to reach a subscriber that joined late")
+    finally:
+        late.close()
+    log(f"[{tag}] KV events, {card}: {len(subscriber.events)} events to the "
+        f"subscriber, stored covers all {len(want)} full blocks of the served "
+        f"prompts; publish-to-receipt lag median {lags[len(lags) // 2]:.3f} ms, "
+        f"max {lags[-1]:.3f} ms over {len(lags)} events; a late subscriber had "
+        f"the {len(cached)} cached hashes after {took * 1e3:.0f} ms")
+
+
+def http_json(port: int, path: str, body: dict) -> tuple[dict, object, float]:
+    """POST ``body``; returns (headers, the JSON reply or, for an SSE reply,
+    its list of data documents, seconds)."""
+    t0 = time.monotonic()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"content-type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        headers = {k.lower(): v for k, v in r.headers.items()}
+        raw = r.read().decode()
+    if headers.get("content-type", "").startswith("text/event-stream"):
+        docs = [json.loads(line[6:]) for line in raw.splitlines()
+                if line.startswith("data: ") and line != "data: [DONE]"]
+        return headers, docs, time.monotonic() - t0
+    return headers, json.loads(raw), time.monotonic() - t0
+
+
+async def check_surface(server, cfg_model, tag: str, card: str) -> dict:
+    """Render, responses and embeddings on the serving engine. The embed
+    calls are a path of their own: the kernel counts are set to 0 just
+    before them and read just after. Returns the embeddings' vectors and
+    launches."""
+    import numpy as np
+
+    from llm_d_inference_scheduler_tpu_torch import ops
+    from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe
+
+    engine, port = server.engine, server.port
+    tok = engine.tokenizer
+    bodies = serve_prompts(engine.model_name)
+    for b in bodies:
+        _, r, _ = await asyncio.to_thread(http_json, port, "/v1/completions/render",
+                                          {"prompt": b["prompt"]})
+        if r["token_ids"] != tok.encode(b["prompt"]) or r["count"] != len(r["token_ids"]):
+            fail(f"{tag}: /v1/completions/render differs from the tokenizer")
+    messages = [{"role": "system", "content": "Answer in one short sentence."},
+                {"role": "user", "content": "What does a paged KV cache hold?"}]
+    _, r, _ = await asyncio.to_thread(http_json, port, "/v1/chat/completions/render",
+                                      {"messages": messages})
+    if r["token_ids"] != tok.encode(r["rendered"]):
+        fail(f"{tag}: /v1/chat/completions/render differs from the tokenizer")
+
+    # Greedy chat and responses on the same messages. A primer request
+    # caches the prompt's full blocks first, so that both prefill through
+    # the same prefix-cache path (a whole-prompt and a prefix prefill
+    # round differently in bf16).
+    gen = {"temperature": 0, "ignore_eos": True}
+    await asyncio.to_thread(http_json, port, "/v1/chat/completions",
+                            {"messages": messages, "max_tokens": 1, **gen})
+    _, chat, _ = await asyncio.to_thread(http_json, port, "/v1/chat/completions",
+                                         {"messages": messages, "max_tokens": 16, **gen})
+    resp_body = {"instructions": messages[0]["content"], "input": messages[1]["content"],
+                 "max_output_tokens": 16, **gen}
+    _, resp, _ = await asyncio.to_thread(http_json, port, "/v1/responses", resp_body)
+    _, streamed, _ = await asyncio.to_thread(http_json, port, "/v1/responses",
+                                             {**resp_body, "stream": True})
+    chat_text = chat["choices"][0]["message"]["content"]
+    resp_text = resp["output"][0]["content"][0]["text"]
+    stream_text = "".join(d["delta"] for d in streamed
+                          if d["type"] == "response.output_text.delta")
+    if (resp_text != chat_text or stream_text != chat_text
+            or resp["usage"]["output_tokens"] != 16
+            or streamed[-1]["type"] != "response.completed"):
+        fail(f"{tag}: /v1/responses {resp_text!r} (streamed {stream_text!r}) differs "
+             f"from the chat text {chat_text!r}")
+
+    # Embeddings of the two ~1100-token prompts, one call each, counted.
+    long_prompts = [b["prompt"] for b in bodies[:2]]
+    embed_calls: list[tuple[float, float]] = []
+    timed(engine, "_run_embed", embed_calls, sync=engine.device.type == "cuda")
+    ops.reset_kernel_launches()
+    vecs, http_ms = [], []
+    for prompt in long_prompts:
+        _, r, dt = await asyncio.to_thread(http_json, port, "/v1/embeddings",
+                                           {"input": prompt})
+        vecs.append(np.asarray(r["data"][0]["embedding"], np.float32))
+        http_ms.append(dt * 1e3)
+        if r["usage"]["prompt_tokens"] != len(tok.encode(prompt)):
+            fail(f"{tag}: /v1/embeddings usage {r['usage']}")
+    launches = ops.kernel_launches()
+    paths = dict(grouped_moe.path_launches)
+    embed_ms = [round(c, 2) for _, c in embed_calls]
+    for v in vecs:
+        if v.shape != (cfg_model.d_model,) or not np.isfinite(v).all():
+            fail(f"{tag}: an embedding of shape {v.shape} with non-finite values")
+    if np.allclose(vecs[0], vecs[1]):
+        fail(f"{tag}: two different prompts pooled to the same vector")
+    n = len(long_prompts)
+    if launches["paged_decode_attention"] != 0:
+        fail(f"{tag}: embeddings launched K1 ({launches})")
+    if cfg_model.n_experts and engine.mcfg.moe_impl == "grouped" and (
+            launches[grouped_moe.KERNEL] != cfg_model.n_layers * n
+            or paths["wgmma"] != cfg_model.n_layers * n):
+        fail(f"{tag}: embeddings did not run K2 on wgmma n_layers times per "
+             f"call ({launches}, by path {paths}, want {cfg_model.n_layers * n})")
+    log(f"[{tag}] surface, {card}: render = tokenizer on {len(bodies)} prompts + "
+        f"chat; greedy /v1/responses (plain and streamed) = chat text "
+        f"({len(chat_text)} chars); embeddings of {n} prompts "
+        f"({[len(tok.encode(p)) for p in long_prompts]} tokens): engine "
+        f"{embed_ms} ms, HTTP {[round(t, 1) for t in http_ms]} ms; launches "
+        f"{launches}, grouped_moe_ffn by path {paths}")
+    return {"vecs": vecs, "ids": [tok.encode(p) for p in long_prompts],
+            "launches": launches, "paths": paths, "embed_ms": embed_ms}
+
+
+async def check_eviction(params, card: str, *, tag: str, model: str = MODEL,
+                         served: str | None = None, device: str = "cuda",
+                         **engine_kw) -> None:
+    """A small engine whose page pool (7 usable blocks) holds one request:
+    three ~100-token prompts in turn each evict the previous one's 6 parked
+    blocks, so ``removed`` must name exactly the first two prompts' hashes
+    and ``stored`` all three's."""
+    from llm_d_inference_scheduler_tpu_torch.engine.config import EngineConfig
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
+    from llm_d_inference_scheduler_tpu_torch.utils.hashing import chain_block_hashes
+
+    cfg = EngineConfig(model=model, served_model_name=served, device=device, port=0,
+                       max_batch=1, max_model_len=128, hbm_kv_blocks=8,
+                       decode_chunk=8, **engine_kw)
+    engine = TorchEngine(cfg, params=params)
+    server = EngineServer(cfg, engine=engine)
+    prompts = [(f"[eviction {i}] " + "The pool keeps one request's blocks. " * 4)
+               [:EVICT_PROMPT_BYTES] for i in range(3)]
+    chains = [chain_block_hashes(cfg.model_name, engine.tokenizer.encode(p), "",
+                                 engine.mcfg.kv_block_size) for p in prompts]
+    await server.start()
+    sub = SseReader(server.port)
+    try:
+        await asyncio.to_thread(wait_for, lambda: engine.kv_events.hub.subscribers == 1,
+                                10, f"{tag}: the eviction engine's subscriber")
+        for p in prompts:
+            await asyncio.to_thread(http_post, server.port, {
+                "prompt": p, "max_tokens": EVICT_TOKENS, "temperature": 0,
+                "ignore_eos": True})
+        want_removed = set(chains[0]) | set(chains[1])
+        await asyncio.to_thread(
+            wait_for, lambda: set(chains[2]) <= sub.hashes("stored")
+            and want_removed <= sub.hashes("removed"), 10,
+            f"{tag}: the eviction engine's events")
+        removed, stored = sub.hashes("removed"), sub.hashes("stored")
+    finally:
+        await server.stop()
+        sub.close()
+    if removed != want_removed or stored != want_removed | set(chains[2]):
+        fail(f"{tag}: removed names {len(removed)} hashes "
+             f"({len(removed & want_removed)} of the {len(want_removed)} evicted), "
+             f"stored {len(stored)}")
+    log(f"[{tag}] eviction, {card}: removed = exactly the {len(want_removed)} "
+        f"evicted hashes of the first two prompts; stored all {len(stored)}")
+
+
+def check_moe_embed_dense(surface: dict, params, model_dir: str, card: str, *,
+                          device: str = "cuda") -> None:
+    """The grouped (K2) embeddings of the serve run against an engine with
+    the dense-over-experts FFN on the same weights and prompts."""
+    import numpy as np
+
+    from llm_d_inference_scheduler_tpu_torch.engine.config import EngineConfig
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+
+    cfg = EngineConfig(model=model_dir, served_model_name=MOE_SERVED, device=device,
+                       max_batch=1, max_model_len=2048, kv_events_port=0)
+    dense = TorchEngine(cfg, params=params)
+    if dense.mcfg.moe_impl != "dense":
+        fail(f"moe-serve: the comparison engine runs {dense.mcfg.moe_impl}")
+    calls: list[tuple[float, float]] = []
+    timed(dense, "_run_embed", calls, sync=dense.device.type == "cuda")
+    asyncio.run(dense.start())
+    try:
+        ref = [dense.embed(ids) for ids in surface["ids"]]
+    finally:
+        asyncio.run(dense.stop())
+    errs = []
+    for got, want in zip(surface["vecs"], ref):
+        err = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        errs.append((err, scale))
+        if not err <= EMBED_REL_TOL * scale:
+            fail(f"moe-serve: grouped embedding differs from dense by {err} "
+                 f"(> {EMBED_REL_TOL} x {scale})")
+    log(f"[moe-serve] embeddings grouped (K2) against dense, {card}: max abs "
+        f"difference / max |dense| = "
+        f"{[f'{e:.4g}/{m:.4g}' for e, m in errs]} (limit {EMBED_REL_TOL} x max); "
+        f"engine ms grouped {surface['embed_ms']}, dense "
+        f"{[round(c, 2) for _, c in calls]}")
 
 
 # ---- phase 5b: P/D KV handoff ---------------------------------------------
@@ -1219,8 +1597,14 @@ def main() -> int:
     with torch.no_grad():
         phase_decode(cfg, params)
 
-    # 5. serve
-    dense_launches, _ = asyncio.run(serve(cfg, params, card))
+    # 5. serve: KV events off, on with a subscriber (the main path, with the
+    # router-facing surface), on, off (decode tok/s in turns); then the
+    # eviction events
+    dense, rates = serve_in_turns(cfg, params, card, "serve")
+    dense_launches = dense["launches"]
+    log(f"[serve] {MODEL}, {card}: decode tok/s with KV events on and a "
+        f"subscriber {rates[True]}, with kv_events_port=0 {rates[False]}")
+    asyncio.run(check_eviction(params, card, tag="serve"))
     # 5b. P/D handoff between two engines sharing the weights
     pd_launches = asyncio.run(phase_pd(cfg, params, card))
     # llama3-8b leaves the card before Mixtral is drawn (16 + 47 GB).
@@ -1254,10 +1638,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as model_dir:
         with open(os.path.join(model_dir, "model_config.json"), "w") as f:
             json.dump(dataclasses.asdict(moe_cfg), f)
-        moe_launches, moe_paths = asyncio.run(serve(
-            moe_cfg, params, card, tag="moe-serve", model=model_dir,
-            served=MOE_SERVED, kernels=(paged_attention.KERNEL, grouped_moe.KERNEL),
-            grouped_moe=True))
+        moe_kw = dict(model=model_dir, served=MOE_SERVED, grouped_moe=True)
+        moe, rates = serve_in_turns(
+            moe_cfg, params, card, "moe-serve",
+            kernels=(paged_attention.KERNEL, grouped_moe.KERNEL), **moe_kw)
+        log(f"[moe-serve] {MOE_SERVED}, {card}: decode tok/s with KV events on "
+            f"and a subscriber {rates[True]}, with kv_events_port=0 {rates[False]}")
+        asyncio.run(check_eviction(params, card, tag="moe-serve", **moe_kw))
+        check_moe_embed_dense(moe["surface"], params, model_dir, card)
+    moe_launches, moe_paths = moe["launches"], moe["paths"]
+    moe_embed = moe["surface"]
     del params
     # One entry per kernel and path, each path's launches from its own run.
     entries = [{**k1, "path": f"{MODEL} serve",
@@ -1267,10 +1657,15 @@ def main() -> int:
                 "launches": moe_launches[paged_attention.KERNEL]},
                {**k2, "path": f"{MOE_SERVED} serve",
                 "launches": moe_launches[grouped_moe.KERNEL],
-                "launches_by_path": moe_paths}]
+                "launches_by_path": moe_paths},
+               {**k2, "path": f"{MOE_SERVED} embeddings",
+                "launches": moe_embed["launches"][grouped_moe.KERNEL],
+                "launches_by_path": moe_embed["paths"]}]
     log(f"[done] launches on the main paths: llama3-8b serve {dense_launches}, "
         f"llama3-8b P/D decode {pd_launches}, "
-        f"{MOE_SERVED} serve {moe_launches} (grouped_moe_ffn by path {moe_paths}); "
+        f"{MOE_SERVED} serve {moe_launches} (grouped_moe_ffn by path {moe_paths}), "
+        f"{MOE_SERVED} embeddings {moe_embed['launches']} (by path "
+        f"{moe_embed['paths']}); "
         f"peak device memory allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 

@@ -83,6 +83,10 @@ class PrefixCachingAllocator(BlockAllocator):
     def cached_block_count(self) -> int:
         return len(self._cached_lru)
 
+    def cached_hashes(self) -> list[int]:
+        """All content-addressed block hashes (active + parked reusable)."""
+        return list(self._by_hash.keys())
+
     # ---- prefix matching ----------------------------------------------
 
     def match_prefix(self, hashes: list[int]) -> list[int]:

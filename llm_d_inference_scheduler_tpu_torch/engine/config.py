@@ -32,8 +32,15 @@ class EngineConfig:
     # block multiple), one window per engine step between decode chunks.
     # 0 = whole-prompt prefill.
     prefill_chunk: int = 0
+    # KV-cache event stream (engine/kv_events.py) feeding the router's
+    # precise prefix scorer: SSE on /kv_events, and ZMQ PUB on this port
+    # where pyzmq is installed. 0 disables events; -1 = serving port + 1000.
+    kv_events_port: int = -1
     device: str = "cuda"          # "cpu" only when asked (tests)
     dtype: str | None = None      # None = the passed params' or the model config's
+
+    def resolved_kv_events_port(self) -> int:
+        return self.port + 1000 if self.kv_events_port == -1 else self.kv_events_port
 
     @property
     def model_config(self) -> ModelConfig:

@@ -36,10 +36,18 @@ single-device serving:
   emits the exporter's first token; every failure falls back to local
   prefill. Exports are released by the importer's ``DELETE`` or swept after
   ``KV_EXPORT_TTL_S``.
+- KV events (``engine/kv_events.py``): ``stored`` when a prefill or an
+  import commits its complete blocks, ``removed`` when the prefix cache
+  evicts them (or, with caching off, when the slot frees them), and a
+  ``stored`` snapshot of the whole cache at most once a second, idle or
+  not, so a subscriber that joins late learns it.
+- ``embed``: the mean-pooled final-norm hidden state of a prompt, computed
+  on the engine thread (requests queue to it with a ``Future``), touching
+  no page or slot.
 
 Not in this slice (the JAX engine has them): the device-to-device transfer
-server and the sharded/multi-host KV wires, KV events, multi-host,
-tensor/expert/pipeline meshes, warm-up, embeddings, multimodal prefill,
+server and the sharded/multi-host KV wires, multi-host,
+tensor/expert/pipeline meshes, warm-up, multimodal prefill,
 batched prefill, shared-storage cache probes.
 """
 
@@ -47,6 +55,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import concurrent.futures
 import dataclasses
 import http.client
 import json
@@ -67,6 +76,7 @@ from ..utils.hashing import chain_block_hashes
 from . import kv_wire
 from .blocks import BlockAllocator, PrefixCachingAllocator
 from .config import EngineConfig
+from .kv_events import KvEventPublisher, zmq_available
 from .request import EngineRequest, FinishReason, TokenEvent
 from .sampling import SamplingKnobs, sample_tokens
 from .telemetry import EngineTelemetry, PrefixHitLog
@@ -99,6 +109,9 @@ class _Slot:
     prefill_rest: list[int] = dataclasses.field(default_factory=list)
     prefill_written: int = 0
     chunk_meta: Any = None
+    # Chain hashes of the complete prompt blocks this slot committed (the
+    # KV events' unit), set with caching or events on.
+    block_hashes: list[int] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -160,6 +173,14 @@ class TorchEngine:
         # for x-kv-pull-*. Bounded ring.
         self.kv_import_stats: dict[str, dict[str, Any]] = {}
         self._kv_import_order: collections.deque[str] = collections.deque()
+        # KV events (None when cfg.resolved_kv_events_port() is 0); the
+        # server attaches the SSE hub, start() decides the ZMQ leg.
+        self.kv_events: KvEventPublisher | None = (
+            KvEventPublisher(self.engine_id, host=cfg.host)
+            if cfg.resolved_kv_events_port() else None)
+        self._last_kv_snapshot = 0.0
+        # embed() requests for the engine thread: (token ids, Future).
+        self._embed_reqs: list[tuple[list[int], concurrent.futures.Future]] = []
 
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
@@ -191,6 +212,8 @@ class TorchEngine:
     # ---- public API (event-loop side) ---------------------------------
 
     async def start(self):
+        if self.kv_events is not None:
+            self.kv_events.zmq_port = self._zmq_events_port()
         self._thread = threading.Thread(target=self._run, name="torch-engine",
                                         daemon=True)
         self._thread.start()
@@ -201,13 +224,38 @@ class TorchEngine:
             self._cond.notify()
         if self._thread:
             self._thread.join(timeout=30)
+        self._fail_embeds("engine stopping")
+        if self.kv_events is not None:
+            self.kv_events.close()
+
+    def _zmq_events_port(self) -> int:
+        """The ZMQ leg's port: an explicit ``kv_events_port`` needs pyzmq
+        (raises without it); the default (-1) is the serving port + 1000,
+        off without pyzmq or without a bound serving port."""
+        if self.cfg.kv_events_port > 0:
+            if not zmq_available():
+                raise RuntimeError(
+                    f"kv_events_port={self.cfg.kv_events_port} asks for the "
+                    "ZMQ event leg, but pyzmq is not installed; pass "
+                    "kv_events_port=-1 for SSE alone or 0 for no events")
+            return self.cfg.kv_events_port
+        if not zmq_available():
+            log.warning("pyzmq is not installed: the ZMQ leg of the KV event "
+                        "stream is off; /kv_events (SSE) serves the events")
+            return 0
+        if self.advertised_port <= 0:
+            log.info("no bound serving port: the ZMQ leg of the KV event "
+                     "stream is off; /kv_events (SSE) serves the events")
+            return 0
+        return self.advertised_port + 1000
 
     def idle(self) -> bool:
         """True when nothing is admitted, queued, importing or fetching and
         no export is held for a decode peer (the SIGTERM drain gate)."""
         with self._cond:
             if (any(s is not None for s in self.slots) or self._waiting
-                    or self._import_ready or self._kv_fetching):
+                    or self._import_ready or self._kv_fetching
+                    or self._embed_reqs):
                 return False
         with self._exports_lock:
             return not self.kv_exports
@@ -240,6 +288,27 @@ class TorchEngine:
         with self._exports_lock:
             return self.kv_exports.get(request_id)
 
+    EMBED_TIMEOUT_S = 600.0
+
+    def embed(self, ids: list[int]) -> np.ndarray:
+        """Mean-pooled final-norm hidden state of a prompt ([d_model] f32),
+        the /v1/embeddings surface; blocks the caller until the engine
+        thread has computed it. Touches no KV page or slot. The prompt
+        runs unpadded: the JAX engine pads to a pow2 bucket to bound its
+        compile cache, which eager PyTorch does not have, and padding only
+        adds rows (and, on MoE models, routed rows) that the mean leaves
+        out."""
+        if not ids:
+            raise ValueError("embed needs at least one token")
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._cond:
+            if self._stop or self._thread is None:
+                raise ValueError("engine unavailable for embeddings "
+                                 "(not started or stopping)")
+            self._embed_reqs.append((list(ids), fut))
+            self._cond.notify()
+        return fut.result(timeout=self.EMBED_TIMEOUT_S)
+
     # ---- engine thread -------------------------------------------------
 
     def _emit(self, slot: _Slot, ev: TokenEvent):
@@ -249,14 +318,20 @@ class TorchEngine:
         loop.call_soon_threadsafe(out.put_nowait, ev)
 
     def _run(self):
+        if self.kv_events is not None:
+            # The PUB socket lives on the thread that publishes.
+            self.kv_events.bind_now()
         with torch.no_grad():
             while True:
                 with self._cond:
                     while (not self._stop and not self._waiting
-                           and not self._import_ready
+                           and not self._import_ready and not self._embed_reqs
                            and not self._abort_ids and not any(self.slots)):
                         self._cond.wait(timeout=0.1)
                         self._sweep_exports()
+                        # A subscriber that joins an idle, warm engine must
+                        # still learn its cache (SSE and PUB replay nothing).
+                        self._publish_kv_snapshot()
                     if self._stop:
                         return
                 try:
@@ -266,7 +341,9 @@ class TorchEngine:
                     self._abort_all()
 
     def _step(self):
+        self._drain_embed_reqs()
         self._sweep_exports()
+        self._publish_kv_snapshot()
         self._process_aborts()
         self._process_imports()
         self._admit()
@@ -293,12 +370,59 @@ class TorchEngine:
             drained, self._waiting = self._waiting, []
             self.telemetry.waiting.set(0)
             imports, self._import_ready = self._import_ready, []
+        self._fail_embeds("engine loop failure")
         drained += [(pi.req, pi.out, pi.loop) for pi in imports]
         for req, out, loop in drained:
             self._emit_to(out, loop, TokenEvent(
                 request_id=req.request_id, token_id=None,
                 finish_reason=FinishReason.ABORT,
                 prompt_tokens=len(req.prompt_token_ids)))
+
+    def _fail_embeds(self, why: str) -> None:
+        with self._cond:
+            reqs, self._embed_reqs = self._embed_reqs, []
+        for _, fut in reqs:
+            if not fut.done():
+                fut.set_exception(ValueError(f"embed not run: {why}"))
+
+    def _drain_embed_reqs(self):
+        with self._cond:
+            reqs, self._embed_reqs = self._embed_reqs, []
+        for ids, fut in reqs:
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(self._run_embed(ids))
+            except Exception as e:
+                fut.set_exception(e)
+
+    def _run_embed(self, ids: list[int]) -> np.ndarray:
+        hidden, _ = llama.forward(self.params, self.mcfg,
+                                  self._to_dev(np.asarray([ids], np.int32)),
+                                  want_hidden=True)
+        return hidden[0].mean(dim=0).cpu().numpy()
+
+    def _publish_kv_snapshot(self):
+        """Re-publish the cache's block hashes at most once a second (SSE
+        and PUB have no replay: a late subscriber converges from this). With
+        prefix caching the content-addressed map is the cache (active and
+        parked blocks); without it, the live slots' blocks."""
+        if self.kv_events is None:
+            return
+        now = time.monotonic()
+        if now - self._last_kv_snapshot < 1.0:
+            return
+        self._last_kv_snapshot = now
+        if isinstance(self.allocator, PrefixCachingAllocator):
+            hashes = self.allocator.cached_hashes()
+        else:
+            hashes = [h for s in self.slots if s is not None
+                      for h in s.block_hashes]
+        self.kv_events.stored(hashes)
+
+    def _publish(self, event: str, hashes: list[int]) -> None:
+        if self.kv_events is not None and hashes:
+            self.kv_events.publish(event, hashes)
 
     def _sweep_exports(self):
         now = time.monotonic()
@@ -409,7 +533,7 @@ class TorchEngine:
                         req.request_id, len(req.prompt_token_ids), len(prompt))
         caching = isinstance(self.allocator, PrefixCachingAllocator)
         hashes = (chain_block_hashes(self.model_name, prompt, "", block)
-                  if caching else [])
+                  if caching or self.kv_events is not None else [])
 
         # Automatic prefix caching: reuse the longest cached run of complete
         # prompt blocks, keeping >= 1 suffix token so logits can be computed.
@@ -420,7 +544,9 @@ class TorchEngine:
                 matched_bids = self.allocator.match_prefix(hashes)[:max_match]
                 self.allocator.acquire_cached(matched_bids)
             blocks = matched_bids + self.allocator.alloc(need - len(matched_bids))
+            evicted = list(getattr(self.allocator, "last_evicted_hashes", []))
             self.telemetry.observe_allocator(self.allocator)
+        self._publish("removed", evicted)
 
         cached_tokens = len(matched_bids) * block
         suffix = prompt[cached_tokens:]
@@ -466,6 +592,8 @@ class TorchEngine:
                 self.allocator.commit_hashes(
                     blocks[len(matched_bids):n_complete],
                     hashes[len(matched_bids):n_complete])
+        slot.block_hashes = hashes[:n_complete]
+        self._publish("stored", slot.block_hashes)
         self.slots[idx] = slot
         self.telemetry.running.set(sum(s is not None for s in self.slots))
 
@@ -581,12 +709,14 @@ class TorchEngine:
             s.chunk_meta = None
             s.prefilling = False
             s.pending_tok = tok_dev
+            n_complete = s.prompt_len // block
             if caching:
-                n_complete = s.prompt_len // block
                 matched_n = s.cached_tokens // block
                 with self._cond:
                     self.allocator.commit_hashes(s.blocks[matched_n:n_complete],
                                                  hashes[matched_n:n_complete])
+            s.block_hashes = hashes[:n_complete]
+            self._publish("stored", s.block_hashes)
             return  # one window per step
 
     # ---- P/D export (prefill side) ---------------------------------------
@@ -812,6 +942,7 @@ class TorchEngine:
                     return
                 pi = self._import_ready[0]
                 blocks: list[int] = []
+                evicted: list[int] = []
                 if pi.error is None:
                     need = self._blocks_needed(pi.req)
                     available = getattr(self.allocator, "reusable_blocks",
@@ -819,8 +950,11 @@ class TorchEngine:
                     if need > available:
                         return  # wait for capacity
                     blocks = self.allocator.alloc(need)
+                    evicted = list(getattr(self.allocator,
+                                           "last_evicted_hashes", []))
                     self.telemetry.observe_allocator(self.allocator)
                 self._import_ready.pop(0)
+            self._publish("removed", evicted)
             if pi.error is None:
                 try:
                     self._import_into_slot(free[0], pi, blocks)
@@ -885,14 +1019,18 @@ class TorchEngine:
         slot = _Slot(req=req, out=pi.out, loop=pi.loop, blocks=blocks,
                      position=seq_len, generated=[first], last_token=first,
                      cached_tokens=seq_len, prompt_len=seq_len)
+        block = self.mcfg.kv_block_size
+        hashes = chain_block_hashes(self.model_name,
+                                    req.prompt_token_ids[:seq_len], "", block)
+        n_complete = seq_len // block
+        slot.block_hashes = hashes[:n_complete]
         if isinstance(self.allocator, PrefixCachingAllocator):
-            block = self.mcfg.kv_block_size
-            hashes = chain_block_hashes(self.model_name,
-                                        req.prompt_token_ids[:seq_len], "", block)
-            n_complete = seq_len // block
             with self._cond:
                 self.allocator.commit_hashes(blocks[:n_complete],
                                              hashes[:n_complete])
+        # The imported blocks become visible to the router (a P/D decode
+        # engine's cache).
+        self._publish("stored", slot.block_hashes)
         self.slots[idx] = slot
         self.telemetry.running.set(sum(s is not None for s in self.slots))
         self.telemetry.ttft.observe(time.monotonic() - req.arrival_time)
@@ -1010,6 +1148,10 @@ class TorchEngine:
             self.allocator.free(s.blocks)
             self.telemetry.observe_allocator(self.allocator)
             self._cond.notify()  # capacity freed: wake admission
+        if not isinstance(self.allocator, PrefixCachingAllocator):
+            # With prefix caching the blocks park instead: 'removed' goes
+            # out when the LRU evicts them (the alloc paths).
+            self._publish("removed", s.block_hashes)
         self.telemetry.running.set(sum(x is not None for x in self.slots))
         self.telemetry.request_success.labels(finished_reason=reason.value).inc()
         ev = TokenEvent(

@@ -6,8 +6,19 @@ with the same JSON shapes, so the router schedules onto either engine alike:
 - ``POST /v1/completions`` and ``/v1/chat/completions``, plain or SSE-streamed
   (``"stream": true``), with stop strings (a stop spanning token boundaries
   is held back, never leaked) and ``usage.prompt_tokens_details``;
+- ``POST /v1/responses`` (the Responses API over the chat template, plain or
+  with semantic SSE events), ``POST /v1/embeddings`` (mean-pooled vectors
+  from ``TorchEngine.embed``), and the token-producer's
+  ``POST /v1/completions/render`` and ``/v1/chat/completions/render``;
 - ``GET /v1/models``, ``/metrics`` (Prometheus text, ``jetstream:*`` names)
   and ``/health``;
+- ``GET /kv_events``: the KV-cache event stream as SSE (one ``data:`` frame
+  per stored/removed event, a ``: ping`` comment every second), which the
+  router's precise prefix scorer subscribes to; 501 with events off;
+- ``GET /debug/kv`` (the prefix-hit ring and totals) and ``GET
+  /debug/traces`` (the engine's span ring: an ``engine.request`` span per
+  generate request, joined to an incoming ``traceparent``, with its
+  ``engine.prefill`` and ``engine.decode`` phases);
 - the P/D KV handoff: ``kv_transfer_params`` relayed into the request and out
   of the response, ``GET /kv/{request_id}`` (the whole export, or with
   ``?chunk=N`` / ``?ack=1`` the chunk-streamed long-poll: 200, 202 on wait
@@ -34,8 +45,10 @@ import urllib.parse
 import uuid
 from typing import Any
 
+from ..utils.tracing import tracer
 from . import kv_wire
 from .config import EngineConfig
+from .kv_events import EventHub
 from .request import EngineRequest, FinishReason, TokenEvent
 from .telemetry import CONTENT_TYPE as METRICS_CONTENT_TYPE
 
@@ -43,7 +56,8 @@ log = logging.getLogger("engine.torch.server")
 
 _REASONS = {200: "OK", 202: "Accepted", 204: "No Content", 400: "Bad Request",
             404: "Not Found", 405: "Method Not Allowed", 413: "Payload Too Large",
-            500: "Internal Server Error", 503: "Service Unavailable"}
+            500: "Internal Server Error", 501: "Not Implemented",
+            503: "Service Unavailable"}
 MAX_BODY = 64 << 20
 
 
@@ -91,16 +105,43 @@ def _chat_to_prompt(messages: list[dict[str, Any]], *,
     return "\n".join(parts)
 
 
+def _responses_input_to_messages(body: dict[str, Any]) -> list[dict[str, Any]]:
+    """A Responses API body as chat messages (the JAX server's mapping):
+    ``instructions`` is the system turn; ``input`` is a user string or an
+    array of strings and message items."""
+    messages: list[dict[str, Any]] = []
+    instructions = body.get("instructions")
+    if isinstance(instructions, str) and instructions:
+        messages.append({"role": "system", "content": instructions})
+    inp = body.get("input")
+    if isinstance(inp, str):
+        messages.append({"role": "user", "content": inp})
+    elif isinstance(inp, list):
+        for item in inp:
+            if isinstance(item, str):
+                messages.append({"role": "user", "content": item})
+            elif isinstance(item, dict) and item.get("type") in (None, "message"):
+                messages.append({"role": item.get("role", "user"),
+                                 "content": item.get("content") or ""})
+    return messages
+
+
+def _sse(doc: Any) -> bytes:
+    return f"data: {json.dumps(doc)}\n\n".encode()
+
+
 class _Conn:
     """One HTTP response being written on a client connection, with the
-    request's path and query."""
+    request's path, query and (lower-cased) headers."""
 
     def __init__(self, writer: asyncio.StreamWriter, keep_alive: bool,
-                 path: str = "", query: dict[str, str] | None = None):
+                 path: str = "", query: dict[str, str] | None = None,
+                 headers: dict[str, str] | None = None):
         self.writer = writer
         self.keep_alive = keep_alive
         self.path = path
         self.query = query or {}
+        self.headers = headers or {}
 
     def _head(self, status: int, headers: dict[str, str]) -> bytes:
         lines = [f"HTTP/1.1 {status} {_REASONS.get(status, 'OK')}"]
@@ -164,21 +205,38 @@ class EngineServer:
         self._routes = {
             ("POST", "/v1/completions"): self.completions,
             ("POST", "/v1/chat/completions"): self.chat_completions,
+            ("POST", "/v1/responses"): self.responses,
+            ("POST", "/v1/embeddings"): self.embeddings,
+            ("POST", "/v1/completions/render"): self.render_completions,
+            ("POST", "/v1/chat/completions/render"): self.render_chat,
             ("GET", "/v1/models"): self.models,
             ("GET", "/metrics"): self.metrics,
             ("GET", "/health"): self.health,
             ("GET", "/kv/"): self.kv_fetch,
             ("DELETE", "/kv/"): self.kv_release,
+            ("GET", "/kv_events"): self.kv_events_stream,
+            ("GET", "/debug/kv"): self.kv_debug,
+            ("GET", "/debug/traces"): self.traces,
         }
 
     # ---- lifecycle -----------------------------------------------------
 
     async def start(self):
-        await self.engine.start()
+        # The SSE hub is attached before the engine thread can publish, and
+        # the listener bound first, so the engine knows the port /kv peers
+        # dial (and its ZMQ event leg's default, port + 1000).
+        if self.engine.kv_events is not None:
+            self.engine.kv_events.hub = EventHub(asyncio.get_running_loop())
         self._server = await asyncio.start_server(self._client, self.cfg.host,
                                                   self.cfg.port)
         self.port = self._server.sockets[0].getsockname()[1]
-        self.engine.advertised_port = self.port  # what /kv peers dial
+        self.engine.advertised_port = self.port
+        try:
+            await self.engine.start()
+        except BaseException:
+            self._server.close()
+            await self._server.wait_closed()
+            raise
         log.info("engine %s serving %s on %s:%d", self.engine.engine_id,
                  self.engine.model_name, self.cfg.host, self.port)
 
@@ -224,7 +282,8 @@ class EngineServer:
                       and version == "HTTP/1.1")
         path, _, query = target.partition("?")
         conn = _Conn(writer, keep_alive, path,
-                     dict(urllib.parse.parse_qsl(query, keep_blank_values=True)))
+                     dict(urllib.parse.parse_qsl(query, keep_blank_values=True)),
+                     headers)
         try:
             n = int(headers.get("content-length") or 0)
         except ValueError:
@@ -342,14 +401,41 @@ class EngineServer:
             out["x-engine-queue-ms"] = f"{ms:.2f}"
         return out
 
+    @staticmethod
+    def _mark_first_token(timing: dict[str, float], ev: TokenEvent) -> None:
+        """Stamp the first token-bearing event's arrival for phase spans."""
+        if ev.token_id is not None and "first_token_at" not in timing:
+            timing["first_token_at"] = time.monotonic()
+
+    def _request_span(self, conn: _Conn):
+        """The engine's server span, joined to the caller's W3C trace
+        context when the gateway or sidecar propagated one."""
+        return tracer.span_from_headers("engine.request", conn.headers,
+                                        path=conn.path,
+                                        engine_id=self.engine.engine_id)
+
+    @staticmethod
+    def _record_phase_spans(t_submit: float, timing: dict[str, float]) -> None:
+        """Prefill (submit to first token: queue + prefill) and decode (first
+        token to finish) phase spans under the live engine.request span."""
+        first = timing.get("first_token_at")
+        if first is None:
+            return
+        done = time.monotonic()
+        tracer.record("engine.prefill", t_submit, first)
+        if done > first:
+            tracer.record("engine.decode", first, done)
+
     async def _collect(self, req: EngineRequest, out: asyncio.Queue,
-                       stop_strings: list[str]) -> dict[str, Any]:
+                       stop_strings: list[str],
+                       timing: dict[str, float]) -> dict[str, Any]:
         acc = ""
         n_completion, n_prompt = 0, len(req.prompt_token_ids)
         finish = FinishReason.LENGTH
         kv_params = None
         while True:
             ev: TokenEvent = await out.get()
+            self._mark_first_token(timing, ev)
             if ev.token_id is not None:
                 acc += ev.text
                 hit = _first_stop_hit(acc, stop_strings)
@@ -383,7 +469,8 @@ class EngineServer:
         return resp
 
     async def _stream(self, conn: _Conn, req: EngineRequest, out: asyncio.Queue,
-                      chat: bool, stop_strings: list[str]) -> None:
+                      chat: bool, stop_strings: list[str],
+                      timing: dict[str, float]) -> None:
         await conn.start_stream()
         created = int(time.time())
         obj = "chat.completion.chunk" if chat else "text_completion"
@@ -397,12 +484,13 @@ class EngineServer:
                      {"text": piece, "index": 0, "finish_reason": None})
             chunk = {"id": req.request_id, "object": obj, "created": created,
                      "model": self.engine.model_name, "choices": [delta]}
-            await conn.write_chunk(f"data: {json.dumps(chunk)}\n\n".encode())
+            await conn.write_chunk(_sse(chunk))
 
         total = ""       # all generated text so far
         emitted = 0      # prefix of `total` already written
         while True:
             ev: TokenEvent = await out.get()
+            self._mark_first_token(timing, ev)
             # Coalesce the awaited event with any queued burst (a decode
             # chunk emits K tokens at once): one SSE delta per drain.
             fin: TokenEvent | None = None
@@ -457,7 +545,7 @@ class EngineServer:
                 chunk = {"id": req.request_id, "object": obj, "created": created,
                          "model": self.engine.model_name,
                          "choices": [final_choice], "usage": usage}
-                await conn.write_chunk(f"data: {json.dumps(chunk)}\n\n".encode())
+                await conn.write_chunk(_sse(chunk))
                 await conn.write_chunk(b"data: [DONE]\n\n")
                 break
         await conn.end_stream()
@@ -465,19 +553,40 @@ class EngineServer:
         # records the non-streamed headers would have popped.
         self._response_headers(req)
 
-    async def _generate(self, conn: _Conn, body: dict[str, Any],
-                        prompt_ids: list[int], chat: bool) -> None:
+    async def _run_request(self, span, body: dict[str, Any],
+                           prompt_ids: list[int],
+                           stream_fn) -> tuple[EngineRequest, dict | None]:
+        """Submit one generate request inside its engine.request span and
+        either stream it with ``stream_fn(req, out, timing)`` (returns
+        (req, None)) or collect it (returns (req, the completion dict))."""
         req = self._build_request(body, prompt_ids)
-        stops = self._stop_strings(body)
+        span.set_attribute("request_id", req.request_id)
+        timing: dict[str, float] = {}
+        t0 = time.monotonic()
         out = self.engine.submit(req)
         try:
             if req.stream:
-                await self._stream(conn, req, out, chat, stops)
-                return
-            resp = await self._collect(req, out, stops)
+                await stream_fn(req, out, timing)
+                resp = None
+            else:
+                resp = await self._collect(req, out, self._stop_strings(body),
+                                           timing)
         except (asyncio.CancelledError, ConnectionError):
             self.engine.abort(req.request_id)  # client went away: stop decoding
             raise
+        self._record_phase_spans(t0, timing)
+        return req, resp
+
+    async def _generate(self, conn: _Conn, body: dict[str, Any],
+                        prompt_ids: list[int], chat: bool) -> None:
+        stops = self._stop_strings(body)
+        with self._request_span(conn) as span:
+            req, resp = await self._run_request(
+                span, body, prompt_ids,
+                lambda req, out, timing: self._stream(conn, req, out, chat,
+                                                      stops, timing))
+        if resp is None:
+            return
         if chat:
             resp["object"] = "chat.completion"
             text = resp["choices"][0].pop("text")
@@ -499,6 +608,134 @@ class EngineServer:
         await self._generate(conn, body, self.engine.tokenizer.encode(prompt),
                              chat=True)
 
+    async def responses(self, conn: _Conn, raw: bytes) -> None:
+        """OpenAI Responses API: ``instructions`` + ``input`` through the chat
+        template, ``max_output_tokens`` for ``max_tokens``, the P/D
+        ``kv_transfer_params`` relay, and a Responses-shaped reply (or, with
+        ``stream``, ``response.output_text.delta`` ... ``response.completed``
+        events)."""
+        body = self._json_body(raw)
+        prompt_ids = self.engine.tokenizer.encode(
+            _chat_to_prompt(_responses_input_to_messages(body)))
+        gen_body = dict(body)
+        if body.get("max_output_tokens") is not None:
+            gen_body["max_tokens"] = body["max_output_tokens"]
+        gen_body.pop("stop", None)  # the Responses API has no stop strings
+        with self._request_span(conn) as span:
+            req, resp = await self._run_request(
+                span, gen_body, prompt_ids,
+                lambda req, out, timing: self._stream_responses(conn, req, out,
+                                                                timing))
+        # No x-kv-* / queue headers on this surface (as the JAX server):
+        # drop the per-request records they would have popped.
+        self._response_headers(req)
+        if resp is None:
+            return
+        usage = resp["usage"]
+        finish = resp["choices"][0]["finish_reason"]
+        wrapped: dict[str, Any] = {
+            "id": f"resp_{req.request_id}",
+            "object": "response",
+            "created_at": resp["created"],
+            "status": "incomplete" if finish == "length" else "completed",
+            "model": self.engine.model_name,
+            "output": [{
+                "type": "message", "id": f"msg_{req.request_id}",
+                "status": "completed", "role": "assistant",
+                "content": [{"type": "output_text", "annotations": [],
+                             "text": resp["choices"][0]["text"]}],
+            }],
+            "usage": {"input_tokens": usage["prompt_tokens"],
+                      "output_tokens": usage["completion_tokens"],
+                      "total_tokens": usage["total_tokens"]},
+        }
+        if wrapped["status"] == "incomplete":
+            # The sidecar reads the truncation cause from here (a Responses
+            # body has no choices[].finish_reason).
+            wrapped["incomplete_details"] = {"reason": "max_output_tokens"}
+        if "kv_transfer_params" in resp:
+            wrapped["kv_transfer_params"] = resp["kv_transfer_params"]
+        await conn.send_json(wrapped)
+
+    async def _stream_responses(self, conn: _Conn, req: EngineRequest,
+                                out: asyncio.Queue,
+                                timing: dict[str, float]) -> None:
+        await conn.start_stream()
+        n_prompt = len(req.prompt_token_ids)
+        while True:
+            ev: TokenEvent = await out.get()
+            self._mark_first_token(timing, ev)
+            if ev.token_id is not None and ev.text:
+                await conn.write_chunk(_sse({"type": "response.output_text.delta",
+                                             "delta": ev.text}))
+            if ev.finish_reason is not None:
+                prompt_tokens = ev.prompt_tokens or n_prompt
+                status = ("incomplete" if ev.finish_reason == FinishReason.LENGTH
+                          else "completed")
+                await conn.write_chunk(_sse({"type": "response.completed", "response": {
+                    "id": f"resp_{req.request_id}", "object": "response",
+                    "status": status, "model": self.engine.model_name,
+                    "usage": {"input_tokens": prompt_tokens,
+                              "output_tokens": ev.completion_tokens,
+                              "total_tokens": prompt_tokens + ev.completion_tokens}}}))
+                await conn.write_chunk(b"data: [DONE]\n\n")
+                break
+        await conn.end_stream()
+
+    async def embeddings(self, conn: _Conn, raw: bytes) -> None:
+        """OpenAI /v1/embeddings: one mean-pooled final-hidden-state vector
+        per input (a string, a list of strings, token ids, or a list of
+        token-id lists), computed on the engine thread."""
+        body = self._json_body(raw)
+        raw_input = body.get("input")
+        if raw_input is None or raw_input == [] or raw_input == "":
+            raise HTTPError(400, "'input' must be a non-empty string, list, "
+                                 "or token ids")
+        if isinstance(raw_input, str) or (isinstance(raw_input, list) and all(
+                isinstance(t, int) for t in raw_input)):
+            items = [raw_input]
+        elif isinstance(raw_input, list):
+            items = raw_input
+        else:
+            raise HTTPError(400, "'input' must be a string, a list of "
+                                 "strings, or token ids")
+        prompts = []
+        for i, item in enumerate(items):
+            if item == "" or item == []:
+                raise HTTPError(400, f"input {i} is empty")
+            ids = self._tokenize_prompt(item)
+            if len(ids) > self.cfg.max_model_len:
+                raise HTTPError(400, f"input {i} is {len(ids)} tokens; maximum "
+                                     f"context length is {self.cfg.max_model_len}")
+            prompts.append(ids)
+        loop = asyncio.get_running_loop()
+        data = []
+        for i, ids in enumerate(prompts):
+            try:
+                vec = await loop.run_in_executor(None, self.engine.embed, ids)
+            except ValueError as e:
+                raise HTTPError(501, str(e))
+            data.append({"object": "embedding", "index": i,
+                         "embedding": vec.tolist()})
+        total = sum(len(ids) for ids in prompts)
+        await conn.send_json({
+            "object": "list", "data": data, "model": self.engine.model_name,
+            "usage": {"prompt_tokens": total, "total_tokens": total}})
+
+    async def render_completions(self, conn: _Conn, raw: bytes) -> None:
+        body = self._json_body(raw)
+        ids = self._tokenize_prompt(body.get("prompt", ""))
+        await conn.send_json({"token_ids": ids, "count": len(ids)})
+
+    async def render_chat(self, conn: _Conn, raw: bytes) -> None:
+        body = self._json_body(raw)
+        rendered = _chat_to_prompt(
+            body.get("messages", []),
+            continue_final_message=bool(body.get("continue_final_message")))
+        ids = self.engine.tokenizer.encode(rendered)
+        await conn.send_json({"token_ids": ids, "count": len(ids),
+                              "rendered": rendered})
+
     async def models(self, conn: _Conn, raw: bytes) -> None:
         await conn.send_json({"object": "list", "data": [{
             "id": self.engine.model_name, "object": "model",
@@ -518,6 +755,63 @@ class EngineServer:
                               "role": "both"},
                              status=200 if status == "ok" else 503)
 
+    async def traces(self, conn: _Conn, raw: bytes) -> None:
+        """The engine's span ring; the gateway's /debug/traces?merge=1
+        merges it with its own by span_id."""
+        await conn.send_json({"service": "engine",
+                              "engine_id": self.engine.engine_id,
+                              "spans": tracer.snapshot()})
+
+    async def kv_debug(self, conn: _Conn, raw: bytes) -> None:
+        """The engine half of the router's /debug/kv: each prefill
+        admission's engine-confirmed prefix hit, newest first (``?n=``,
+        default 64), and the running admitted/hit token totals."""
+        try:
+            n = max(1, int(conn.query.get("n", "64")))
+        except ValueError:
+            n = 64
+        hits = self.engine.kv_hits
+        ring = list(hits.ring)
+        totals = dict(hits.totals)
+        if totals.get("prefill_tokens"):
+            totals["actual_hit_ratio"] = round(
+                totals.get("prefix_hit_tokens", 0) / totals["prefill_tokens"], 4)
+        await conn.send_json({
+            "engine_id": self.engine.engine_id,
+            "block_size": self.engine.mcfg.kv_block_size,
+            "count": len(ring),
+            "totals": totals,
+            "recent": ring[-n:][::-1],
+        })
+
+    # ---- KV events ------------------------------------------------------
+
+    # The router's subscriber reads with a 5 s timeout: a comment line every
+    # second keeps an idle stream alive.
+    KV_EVENTS_PING_S = 1.0
+
+    async def kv_events_stream(self, conn: _Conn, raw: bytes) -> None:
+        """SSE stream of the engine's KV events; each queued burst goes out
+        as one chunk of ``data:`` frames. The subscriber's queue leaves the
+        hub when the client goes or the server stops."""
+        pub = self.engine.kv_events
+        if pub is None or pub.hub is None:
+            raise HTTPError(501, "kv events disabled on this engine")
+        q = pub.hub.subscribe()
+        try:
+            await conn.start_stream()
+            while True:
+                try:
+                    doc = await asyncio.wait_for(q.get(), timeout=self.KV_EVENTS_PING_S)
+                except asyncio.TimeoutError:
+                    await conn.write_chunk(b": ping\n\n")
+                    continue
+                frames = [_sse(doc)]
+                while not q.empty():
+                    frames.append(_sse(q.get_nowait()))
+                await conn.write_chunk(b"".join(frames))
+        finally:
+            pub.hub.unsubscribe(q)
 
     # ---- KV handoff (P/D disaggregation) --------------------------------
 
@@ -648,6 +942,9 @@ def main(argv: list[str] | None = None):
                    help="decode steps fused per device dispatch")
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help="incremental prefill window in tokens (0 = whole prompt)")
+    p.add_argument("--kv-events-port", type=int, default=-1,
+                   help="KV event stream: ZMQ PUB port (needs pyzmq; SSE on "
+                        "/kv_events either way); -1 = --port + 1000, 0 = off")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain ops on the CPU")
@@ -659,7 +956,8 @@ def main(argv: list[str] | None = None):
                        port=args.port, host=args.host, max_batch=args.max_batch,
                        max_model_len=args.max_model_len,
                        decode_chunk=args.decode_chunk,
-                       prefill_chunk=args.prefill_chunk, seed=args.seed,
+                       prefill_chunk=args.prefill_chunk,
+                       kv_events_port=args.kv_events_port, seed=args.seed,
                        device=args.device, dtype=args.dtype)
     logging.basicConfig(level=logging.INFO)
     asyncio.run(run_server(cfg, drain_timeout_s=args.drain_timeout))
