@@ -38,6 +38,18 @@ Phases (any failure exits non-zero):
                and K1 launched n_layers times per decode step of the decode
                engine; prints bytes, pull/exposed ms, the engine thread's
                staging stall, import ms and TTFTs
+  5c. epd     E/P/D at llama3-8b width and depth: two encode servers (the
+               three images round-robin, 0 and 2 on A, 1 on B), a prefill and
+               a decode server whose legs name both in ec_sources (32 greedy
+               tokens); each encoder's rows equal the tower run in-process,
+               the decode server's rows come in item order, the tokens equal
+               one E/D engine's, the splice moves the first-token logits, the
+               tower launches no K1 and the decode leg launches it; /health
+               reports each role; a cold cache_hit_threshold probe answers
+               cache_threshold without allocating, a warm one answers; prints
+               encode ms, /ec bytes and pull ms, the multimodal prefill ms,
+               TTFT of E/P/D, E/D and text-only P/D, and the time to /health
+               ok with and without --warmup
   6. moe       K2 against its plain version at full Mixtral width (decode
                and prefill sizes, skewed routing, an empty expert), bf16 and
                f32, with times of the kernel, the plain version and a
@@ -56,7 +68,8 @@ Phases (any failure exits non-zero):
                embeddings held against an engine with the dense FFN
 The lines before the last carry the card's name and power limit and a JSON
 object listing each kernel once for every serving path that launches it
-(the P/D decode engine's K1 launches as path "llama3-8b P/D decode", K2's
+(the P/D decode engine's K1 launches as path "llama3-8b P/D decode", the
+E/P/D decode leg's as "llama3-8b E/P/D decode", K2's
 launches of the Mixtral /v1/embeddings calls as path
 "mixtral-8x7b-16l embeddings"), with that path's launch count (K2's entry also by kernel path, and its
 prefill-size times under prefill_*); the last line is
@@ -1199,6 +1212,277 @@ async def phase_pd(cfg_model, params, card: str, *, model: str = MODEL,
     return launches
 
 
+# ---- phase 5c: E/P/D multimodal --------------------------------------------
+
+EPD_TOKENS = 32
+EPD_IMAGES = 3
+EPD_TEXT = ("Three images follow the placeholders: say what each one shows, "
+            "then compare them in one short paragraph. ") * 3
+EPD_PROBE = "A prompt no engine has seen, for the cold shared-storage probe. " * 3
+
+
+def epd_items() -> list[dict]:
+    """Three seeded 32 x 32 x 3 images as inline pixels (the tower's size)."""
+    import numpy as np
+
+    rng = np.random.default_rng(6)
+    return [{"type": "image_url",
+             "pixels": rng.standard_normal((32, 32, 3)).astype(np.float32).tolist()}
+            for _ in range(EPD_IMAGES)]
+
+
+def health(port: int) -> tuple[int, dict]:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+async def time_to_ready(cfg, params) -> float:
+    """Seconds from an engine server's start to /health 200 ok."""
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
+
+    t0 = time.monotonic()
+    server = EngineServer(cfg, engine=TorchEngine(cfg, params=params))
+    await server.start()
+    try:
+        while (await asyncio.to_thread(health, server.port))[0] != 200:
+            if server.engine.failure is not None:
+                fail(f"warm-up failed: {server.engine.failure!r}")
+            if time.monotonic() - t0 > 300:
+                fail("an engine server was not ready after 300 s")
+            await asyncio.sleep(0.01)
+        return time.monotonic() - t0
+    finally:
+        await server.stop()
+
+
+async def phase_epd(cfg_model, params, card: str, *, model: str = MODEL,
+                    device: str = "cuda") -> int:
+    """E/P/D at llama3-8b width and depth, as the router's sidecar drives it:
+    two encode servers (the items round-robin, 0 and 2 on A, 1 on B), then a
+    prefill leg and a decode leg that both name the encoders in
+    ``ec_sources``; held against the tower run here, the items' order, one
+    E/D engine given the same sources, and the text-only prompt. Also the
+    shared-storage probe and the time to ready with and without warm-up.
+    Returns K1's launches on the E/P/D decode leg."""
+    import numpy as np
+
+    from llm_d_inference_scheduler_tpu_torch import ops
+    from llm_d_inference_scheduler_tpu_torch.engine.config import EngineConfig
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
+    from llm_d_inference_scheduler_tpu_torch.models import llama, vision
+
+    kw = dict(model=model, device=device, port=0, max_batch=8, max_model_len=2048,
+              decode_chunk=8)
+    sync = device == "cuda"
+    # Encode workers share the served model's weights (their tower projects
+    # into its d_model) and hold a few KV blocks only.
+    cfgs = {"enc_a": EngineConfig(**kw, role="encode", hbm_kv_blocks=4),
+            "enc_b": EngineConfig(**kw, role="encode", hbm_kv_blocks=4),
+            "pre": EngineConfig(**kw, role="prefill", prefill_chunk=PD_PREFILL_CHUNK),
+            "dec": EngineConfig(**kw, role="decode"),
+            "mono": EngineConfig(**kw, prefill_chunk=PD_PREFILL_CHUNK)}
+    srv = {n: EngineServer(c, engine=TorchEngine(c, params=params))
+           for n, c in cfgs.items()}
+    dec_tokens, dec_first = tap_engine(srv["dec"].engine)
+    mono_tokens, mono_first = tap_engine(srv["mono"].engine)
+    prefill_ms: list = []
+    timed(srv["pre"].engine, "_run_prefill", prefill_ms, sync=sync)
+    tower_ms: list = []  # the tower's own share of each encode request
+    for n in ("enc_a", "enc_b"):
+        timed(srv[n].engine, "encode_images", tower_ms, sync=sync)
+    pulls: list[tuple[str, int, float]] = []
+    resolved: dict[str, np.ndarray] = {}
+    fetch_ec, resolve = srv["dec"]._fetch_ec, srv["dec"]._resolve_multimodal
+
+    def timed_fetch(source, rid, headers):
+        t0 = time.perf_counter()
+        payload = fetch_ec(source, rid, headers)
+        pulls.append((source, len(payload or b""), (time.perf_counter() - t0) * 1e3))
+        return payload
+
+    async def recorded_resolve(body, prompt_ids):
+        t0 = time.perf_counter()
+        out = await resolve(body, prompt_ids)
+        if out[1] is not None:
+            resolved[body.get("request_id")] = out[1]
+            resolved["ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    srv["dec"]._fetch_ec = timed_fetch
+    srv["dec"]._resolve_multimodal = recorded_resolve
+    for s in srv.values():
+        await s.start()
+    try:
+        roles = {n: (await asyncio.to_thread(health, s.port))[1]["role"]
+                 for n, s in srv.items()}
+        if [roles[n] for n in ("enc_a", "enc_b", "pre", "dec")] != [
+                "encode", "encode", "prefill", "decode"]:
+            fail(f"epd: /health roles {roles}")
+        for s in srv.values():
+            await asyncio.to_thread(http_post, s.port, {
+                "prompt": "warm up", "max_tokens": 9, "temperature": 0})
+
+        # Encode, as the sidecar's fan-out: both encoders at once. The
+        # tower must launch no K1.
+        rid = "epd-1"
+        items = epd_items()
+        shares = {"enc_a": [0, 2], "enc_b": [1]}
+        ops.reset_kernel_launches()
+        enc_res = await asyncio.gather(*[asyncio.to_thread(
+            http_json, srv[n].port, "/v1/encode",
+            {"request_id": rid, "items": [items[i] for i in idx], "item_indices": idx})
+            for n, idx in shares.items()])
+        tower_k1 = ops.kernel_launches()["paged_decode_attention"]
+        enc_ms = [round(r[2] * 1e3, 3) for r in enc_res]
+        # Each encoder's staged rows against the tower run here on the same
+        # pixels (same device, same ops, same batch: exact).
+        vcfg = dataclasses.replace(vision.VIT_TINY, out_dim=cfg_model.d_model)
+        gen = torch.Generator(device=device).manual_seed(cfgs["enc_a"].seed)
+        vparams = vision.init_vision_params(vcfg, device, gen)
+        for n, idx in shares.items():
+            px = torch.tensor(np.stack([np.asarray(items[i]["pixels"], np.float32)
+                                        for i in idx]), device=device)
+            with torch.no_grad():
+                want = vision.encode_image(vparams, vcfg, px)
+            want = want.reshape(-1, want.shape[-1]).float().cpu().numpy()
+            got = srv[n].ec_store[rid]["embeds"]
+            if got.shape != want.shape or not np.array_equal(got, want):
+                fail(f"epd: {n}'s staged rows differ from the tower run here "
+                     f"({got.shape} vs {want.shape})")
+        sources = [f"127.0.0.1:{srv[n].port}" for n in ("enc_a", "enc_b")]
+        body = {"prompt": EPD_TEXT, "max_tokens": EPD_TOKENS, "temperature": 0,
+                "ignore_eos": True, "request_id": rid, "ec_sources": sources}
+
+        # E/P/D: the prefill leg, then the decode leg with its
+        # kv_transfer_params; K1 counted over exactly these two legs.
+        ops.reset_kernel_launches()
+        steps0 = srv["dec"].engine.decode_steps
+        prefill_ms.clear()
+        t0 = time.monotonic()
+        r1 = await asyncio.to_thread(http_post, srv["pre"].port, {
+            **body, "kv_transfer_params": {"do_remote_decode": True}})
+        ktp = r1["json"]["kv_transfer_params"]
+        r2 = await asyncio.to_thread(http_post, srv["dec"].port, {
+            **body, "kv_transfer_params": ktp})
+        epd_ttft = (dec_first[rid] - t0) * 1e3
+        epd_launches = ops.kernel_launches()["paged_decode_attention"]
+        epd_steps = srv["dec"].engine.decode_steps - steps0
+        mm_prefill = [round(c, 3) for _, c in prefill_ms]
+        epd_pulls = list(pulls)
+
+        # E/D: one engine that prefills and decodes, the same sources.
+        t0 = time.monotonic()
+        await asyncio.to_thread(http_post, srv["mono"].port, body)
+        ed_ttft = (mono_first[rid] - t0) * 1e3
+
+        # Text-only P/D: the same text, no images.
+        text = {k: v for k, v in body.items() if k != "ec_sources"}
+        t0 = time.monotonic()
+        r3 = await asyncio.to_thread(http_post, srv["pre"].port, {
+            **text, "request_id": "pd-text",
+            "kv_transfer_params": {"do_remote_decode": True}})
+        await asyncio.to_thread(http_post, srv["dec"].port, {
+            **text, "request_id": "pd-text",
+            "kv_transfer_params": r3["json"]["kv_transfer_params"]})
+        text_ttft = (dec_first["pd-text"] - t0) * 1e3
+
+        # The shared-storage probe: cold on a prompt nobody served (no block
+        # moves), warm on the text prompt the decode engine just imported.
+        alloc = srv["dec"].engine.allocator
+        free0 = (alloc.free_blocks, alloc.reusable_blocks)
+        cold = await asyncio.to_thread(http_post, srv["dec"].port, {
+            "prompt": EPD_PROBE, "max_tokens": 1, "cache_hit_threshold": 0.5})
+        free1 = (alloc.free_blocks, alloc.reusable_blocks)
+        warm = await asyncio.to_thread(http_post, srv["dec"].port, {
+            "prompt": EPD_TEXT, "max_tokens": 1, "temperature": 0,
+            "ignore_eos": True, "cache_hit_threshold": 0.5})
+        # The splice's effect on the first token's logits: the multimodal
+        # prompt against the same placeholder prompt without embeddings.
+        mm = resolved[rid]
+        ids = [0] * mm.shape[0] + srv["dec"].engine.tokenizer.encode(EPD_TEXT)
+        tok = torch.tensor([ids], device=device)
+        with torch.no_grad():
+            h_mm, _ = llama.forward(params, cfg_model, tok, want_hidden=True,
+                                    mm_embeds=torch.tensor(mm[None], device=device),
+                                    mm_positions=torch.arange(mm.shape[0], device=device)[None])
+            h_0, _ = llama.forward(params, cfg_model, tok, want_hidden=True)
+        lm = params["lm_head"]
+        l_mm = (h_mm[0, -1].to(lm.dtype) @ lm).float()
+        l_0 = (h_0[0, -1].to(lm.dtype) @ lm).float()
+        logit_diff = (l_mm - l_0).abs().max().item()
+        del h_mm, h_0
+    finally:
+        for s in srv.values():
+            await s.stop()
+    if sync:
+        torch.cuda.empty_cache()
+
+    a, b = (srv[n].ec_store[rid]["embeds"] for n in ("enc_a", "enc_b"))
+    per = a.shape[0] // 2
+    # The /ec wire's JSON cost on this host, alone: encoder A's two images.
+    t0 = time.perf_counter()
+    payload = json.dumps({"embeddings": a.tolist()}).encode()
+    t1 = time.perf_counter()
+    json.loads(payload)
+    json_ms = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3, len(payload))
+    if not np.array_equal(mm, np.concatenate([a[:per], b, a[per:]])):
+        fail("epd: the decode server's embeddings are not A0, B1, A2 in that order")
+    if tower_k1:
+        fail(f"epd: the tower launched K1 {tower_k1} times")
+    got, want = dec_tokens[rid], mono_tokens[rid]
+    at = first_divergence(got, want)
+    log(f"[epd] E/P/D {len(got)} tokens, E/D {len(want)}; "
+        f"{'equal' if at is None else f'first divergence at position {at}'}")
+    if at is not None or len(want) != EPD_TOKENS:
+        fail(f"epd: E/P/D tokens differ from the E/D engine's at {at}")
+    if r2["headers"].get("x-kv-pull-route") != "host":
+        fail(f"epd: the decode leg pulled no KV ({r2['headers']})")
+    need = cfg_model.n_layers * epd_steps
+    if epd_steps <= 0 or epd_launches < need:
+        fail(f"epd: the decode leg did not go through K1 ({epd_launches} < {need})")
+    if not logit_diff > 0:
+        fail("epd: the spliced embeddings left the first-token logits unchanged")
+    if (cold["json"]["choices"][0]["finish_reason"] != "cache_threshold"
+            or free1 != free0):
+        fail(f"epd: cold probe {cold['json']['choices'][0]} moved blocks {free0} -> {free1}")
+    if warm["json"]["choices"][0]["finish_reason"] != "length":
+        fail(f"epd: warm probe answered {warm['json']['choices'][0]}")
+
+    # Time to ready. Phase 2 built the kernels, so the warm-up is its trial
+    # runs (one prefill, decode chunks at 1, 2, 4, 8 lanes).
+    ready = {}
+    for warmup in (False, True, True, False):
+        cfg = EngineConfig(**kw, role="decode", warmup=warmup)
+        ready.setdefault(warmup, []).append(round(await time_to_ready(cfg, params), 3))
+    if sync:
+        torch.cuda.empty_cache()
+
+    log(f"[epd] {model}, {card}: encode ms per request (host clock; A: items 0, 2; "
+        f"B: item 1) {enc_ms}; /ec pulls by the decode leg (source, bytes, ms) "
+        f"{[(src, n, round(ms, 3)) for src, n, ms in epd_pulls]}; its resolve "
+        f"(pulls + JSON parse + reorder) {resolved['ms']:.3f} ms; JSON of A's "
+        f"rows alone, {json_ms[2]} bytes: tolist + dumps {json_ms[0]:.3f} ms, "
+        f"loads {json_ms[1]:.3f} ms; the tower inside the encode requests "
+        f"(synchronised; the first call draws it) {[round(c, 3) for _, c in tower_ms]} ms")
+    log(f"[epd] {model}, {card}: multimodal prefill ms (synchronised) {mm_prefill}, "
+        f"{mm.shape[0]} spliced rows + {len(ids) - mm.shape[0]} text tokens; first-token "
+        f"logits max |with - without embeddings| {logit_diff:.4f}")
+    log(f"[epd] {model}, {card}: TTFT (request start to the first token) E/P/D "
+        f"{epd_ttft:.1f} ms, E/D {ed_ttft:.1f} ms, text-only P/D {text_ttft:.1f} ms; "
+        f"K1 launches on the E/P/D decode leg {epd_launches} (n_layers x "
+        f"{epd_steps} steps = {need}), by the tower {tower_k1}")
+    log(f"[epd] {model}, {card}: start to /health ok, s: without warm-up "
+        f"{ready[False]}, with --warmup {ready[True]}; probe 0.5 cold -> "
+        f"cache_threshold (free blocks {free0} -> {free1}), warm -> "
+        f"{warm['json']['choices'][0]['finish_reason']}")
+    return epd_launches
+
+
 # ---- phase 6: grouped-expert FFN (K2) -----------------------------------
 
 
@@ -1607,6 +1891,8 @@ def main() -> int:
     asyncio.run(check_eviction(params, card, tag="serve"))
     # 5b. P/D handoff between two engines sharing the weights
     pd_launches = asyncio.run(phase_pd(cfg, params, card))
+    # 5c. E/P/D: two encoders and the P/D pair, on the same weights
+    epd_launches = asyncio.run(phase_epd(cfg, params, card))
     # llama3-8b leaves the card before Mixtral is drawn (16 + 47 GB).
     del params
     gc.collect()
@@ -1653,6 +1939,7 @@ def main() -> int:
     entries = [{**k1, "path": f"{MODEL} serve",
                 "launches": dense_launches[paged_attention.KERNEL]},
                {**k1, "path": f"{MODEL} P/D decode", "launches": pd_launches},
+               {**k1, "path": f"{MODEL} E/P/D decode", "launches": epd_launches},
                {**k1, "path": f"{MOE_SERVED} serve",
                 "launches": moe_launches[paged_attention.KERNEL]},
                {**k2, "path": f"{MOE_SERVED} serve",
@@ -1662,7 +1949,7 @@ def main() -> int:
                 "launches": moe_embed["launches"][grouped_moe.KERNEL],
                 "launches_by_path": moe_embed["paths"]}]
     log(f"[done] launches on the main paths: llama3-8b serve {dense_launches}, "
-        f"llama3-8b P/D decode {pd_launches}, "
+        f"llama3-8b P/D decode {pd_launches}, llama3-8b E/P/D decode {epd_launches}, "
         f"{MOE_SERVED} serve {moe_launches} (grouped_moe_ffn by path {moe_paths}), "
         f"{MOE_SERVED} embeddings {moe_embed['launches']} (by path "
         f"{moe_embed['paths']}); "

@@ -17,6 +17,9 @@ class EngineConfig:
     max_model_len: int = 2048
     hbm_kv_blocks: int = 0        # 0 = derive from max_batch * max_model_len
     seed: int = 0
+    # P/D role the engine reports on /health ("both" | "prefill" | "decode"
+    # | "encode"); any role serves every route, as the JAX engine does.
+    role: str = "both"
     port: int = 8200
     host: str = "127.0.0.1"
     enable_prefix_caching: bool = True
@@ -36,6 +39,11 @@ class EngineConfig:
     # precise prefix scorer: SSE on /kv_events, and ZMQ PUB on this port
     # where pyzmq is installed. 0 disables events; -1 = serving port + 1000.
     kv_events_port: int = -1
+    # Before admitting anything, build the CUDA kernels of the model's paths
+    # and run a trial prefill and decode at every batch bucket (and, with
+    # role "encode", the vision tower); /health answers 503 "warming" until
+    # then. A warm-up failure stops the engine.
+    warmup: bool = False
     device: str = "cuda"          # "cpu" only when asked (tests)
     dtype: str | None = None      # None = the passed params' or the model config's
 

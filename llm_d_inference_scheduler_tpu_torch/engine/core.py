@@ -44,11 +44,22 @@ single-device serving:
 - ``embed``: the mean-pooled final-norm hidden state of a prompt, computed
   on the engine thread (requests queue to it with a ``Future``), touching
   no page or slot.
+- Multimodal prefill (E/P/D): a request carrying encoder embeddings
+  (``mm_embeds``) prefills its whole prompt in one ``llama.forward`` with
+  the embeddings spliced in at ``mm_positions``, bypassing the prefix cache,
+  the KV events and the incremental-prefill window; the vision tower that
+  makes such embeddings (``vision``, ``encode_images``) serves ``/v1/encode``.
+- Shared-storage probe: a request with ``cache_hit_threshold`` whose prefix
+  hit ratio is below it ends at admission with ``CACHE_THRESHOLD``, before
+  any block is allocated.
+- Warm-up (``cfg.warmup``): before admitting anything the engine thread
+  builds the model's CUDA kernels and runs each serving path once on the
+  trash block; a failure stops the engine (``failure``), it never serves
+  without a kernel.
 
 Not in this slice (the JAX engine has them): the device-to-device transfer
 server and the sharded/multi-host KV wires, multi-host,
-tensor/expert/pipeline meshes, warm-up, multimodal prefill,
-batched prefill, shared-storage cache probes.
+tensor/expert/pipeline meshes, batched prefill.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ import dataclasses
 import http.client
 import json
 import logging
+import os
 import threading
 import time
 import urllib.parse
@@ -69,7 +81,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..models import llama
+from ..models import llama, vision
+from ..ops import _build, grouped_moe, paged_attention
 from ..ops.moe import check_tileable
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.hashing import chain_block_hashes
@@ -136,6 +149,12 @@ class TorchEngine:
             # A geometry the kernel cannot tile fails here, not mid-serve.
             check_tileable(self.mcfg.d_model, self.mcfg.d_ff)
             self.mcfg = dataclasses.replace(self.mcfg, moe_impl="grouped")
+        if params is None and os.path.isdir(cfg.model):
+            # The JAX engine restores such a directory's weights (Orbax,
+            # which needs JAX); random weights would answer as if loaded.
+            raise ValueError(
+                f"model {cfg.model!r} is a checkpoint directory: the port "
+                "loads no checkpoint yet, so the caller must pass params")
         self.device = resolve_device(cfg.device)
         # Passed-in params fix the dtype unless the config names one.
         self.dtype = torch_dtype(
@@ -195,7 +214,13 @@ class TorchEngine:
         self.k_pages = torch.zeros(kshape, dtype=self.dtype, device=self.device)
         self.v_pages = torch.zeros(kshape, dtype=self.dtype, device=self.device)
 
-        self.warming = False  # /health parity with the JAX engine (no warm-up)
+        # /health answers 503 "warming" until the engine thread has warmed
+        # up; a warm-up failure is kept here and stops the engine.
+        self.warming = cfg.warmup
+        self.failure: BaseException | None = None
+        # The E/P/D vision tower, built on first use (vision()).
+        self._vision: tuple[vision.VisionConfig, dict] | None = None
+        self._vision_lock = threading.Lock()
         self.slots: list[_Slot | None] = [None] * cfg.max_batch
         self._waiting: list[tuple[EngineRequest, asyncio.Queue, asyncio.AbstractEventLoop]] = []
         self._abort_ids: set[str] = set()
@@ -309,6 +334,30 @@ class TorchEngine:
             self._cond.notify()
         return fut.result(timeout=self.EMBED_TIMEOUT_S)
 
+    def vision(self) -> tuple[vision.VisionConfig, dict]:
+        """The vision tower (config, params) of ``/v1/encode``: ``VIT_TINY``
+        projecting into the served model's ``d_model``, so its embeddings
+        splice into this model's prefill, with weights drawn from the
+        engine's seed on its device. Built on first use."""
+        with self._vision_lock:
+            if self._vision is None:
+                vcfg = dataclasses.replace(vision.VIT_TINY,
+                                           out_dim=self.mcfg.d_model)
+                gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+                self._vision = (vcfg, vision.init_vision_params(vcfg, self.device, gen))
+            return self._vision
+
+    def encode_images(self, pixels: np.ndarray) -> np.ndarray:
+        """The tower over ``pixels`` [N, H, W, C] as host f32 embeddings
+        [N * n_patches, d_model], item after item. Thread-safe (plain
+        PyTorch ops, no kernel wrapper): the server runs it off the event
+        loop."""
+        vcfg, params = self.vision()
+        with torch.no_grad():
+            out = vision.encode_image(params, vcfg,
+                                      self._to_dev(np.asarray(pixels, np.float32)))
+        return out.reshape(-1, out.shape[-1]).float().cpu().numpy()
+
     # ---- engine thread -------------------------------------------------
 
     def _emit(self, slot: _Slot, ev: TokenEvent):
@@ -322,6 +371,19 @@ class TorchEngine:
             # The PUB socket lives on the thread that publishes.
             self.kv_events.bind_now()
         with torch.no_grad():
+            if self.cfg.warmup:
+                try:
+                    self._warmup()
+                except Exception as e:
+                    # No path serves without its kernel: stop, answering
+                    # whatever was queued meanwhile.
+                    log.exception("engine warm-up failed; the engine stops")
+                    self.failure = e
+                    with self._cond:
+                        self._stop = True
+                    self._abort_all()
+                    return
+                self.warming = False
             while True:
                 with self._cond:
                     while (not self._stop and not self._waiting
@@ -339,6 +401,51 @@ class TorchEngine:
                 except Exception:
                     log.exception("engine loop failure; aborting in-flight requests")
                     self._abort_all()
+
+    def _warmup(self):
+        """Build every CUDA kernel the model's paths launch (K1; K2 with the
+        grouped MoE FFN), then run each serving path once with all writes
+        on the trash block 0: a 16-token prefill; with ``prefill_chunk``,
+        one window and one prefix continuation; one decode chunk at every
+        batch bucket ``_batch_bucket`` can produce; with role ``encode``,
+        the vision tower. Greedy lanes draw nothing from the sampling
+        generator, so the outputs do not depend on the warm-up."""
+        t0 = time.monotonic()
+        if self.device.type == "cuda":
+            kernels = [paged_attention.KERNEL]
+            if self.mcfg.moe_impl == "grouped":
+                kernels.append(grouped_moe.KERNEL)
+            _build.build(kernels)
+        block = self.mcfg.kv_block_size
+        row = np.zeros((1, self.max_blocks_per_seq), np.int32)
+        windows = [(min(16, self.cfg.max_model_len - 1), 0)]
+        win = self._prefill_window()
+        if win:
+            windows += [(min(win, self.cfg.max_model_len - 1), 0),
+                        (min(win, self.cfg.max_model_len - 1 - block), block)]
+        for n, prefix in windows:
+            if n > 0:
+                self._run_prefill(_DUMMY_REQ, [0] * n, [0] * n, prefix,
+                                  [0] * (prefix // block), row)
+        steps, W, b = self.decode_steps, self.max_blocks_per_seq, 1
+        while True:
+            B = self._batch_bucket(b)
+            self._decode_chunk(np.zeros((B,), np.int32), np.zeros((B,), np.int32),
+                               np.zeros((B, W), np.int32), [_DUMMY_REQ] * B)
+            if B >= self.cfg.max_batch:
+                break
+            b = 2 * B
+        self.decode_steps = steps
+        if self.cfg.role == "encode":
+            vcfg, _ = self.vision()
+            self.encode_images(np.zeros(
+                (1, vcfg.image_size, vcfg.image_size, vcfg.channels), np.float32))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        log.info("engine warm-up ran prefill, decode buckets up to %d%s in %.1fs",
+                 self.cfg.max_batch,
+                 " and the vision tower" if self.cfg.role == "encode" else "",
+                 time.monotonic() - t0)
 
     def _step(self):
         self._drain_embed_reqs()
@@ -531,17 +638,39 @@ class TorchEngine:
         if len(prompt) < len(req.prompt_token_ids):
             log.warning("request %s: prompt truncated %d -> %d tokens",
                         req.request_id, len(req.prompt_token_ids), len(prompt))
-        caching = isinstance(self.allocator, PrefixCachingAllocator)
+        mm = req.mm_embeds is not None
+        # A multimodal prompt is not content-addressable by its token ids
+        # (the same placeholders carry other images): no prefix cache, no
+        # KV events for it.
+        caching = isinstance(self.allocator, PrefixCachingAllocator) and not mm
         hashes = (chain_block_hashes(self.model_name, prompt, "", block)
-                  if caching or self.kv_events is not None else [])
+                  if caching or (self.kv_events is not None and not mm) else [])
 
         # Automatic prefix caching: reuse the longest cached run of complete
         # prompt blocks, keeping >= 1 suffix token so logits can be computed.
+        max_match = (len(prompt) - 1) // block
         matched_bids: list[int] = []
-        with self._cond:
-            if caching and hashes:
-                max_match = (len(prompt) - 1) // block
+        if caching and hashes:
+            with self._cond:
                 matched_bids = self.allocator.match_prefix(hashes)[:max_match]
+        if req.cache_hit_threshold is not None and prompt:
+            # Shared-storage probe: end before any allocation when the cache
+            # covers too little of the matchable prefix (complete blocks
+            # less the suffix token, so a fully warm cache scores 1.0); the
+            # sidecar then prefills remotely and asks again.
+            ratio = len(matched_bids) / max_match if max_match else 1.0
+            if ratio < req.cache_hit_threshold:
+                cached = len(matched_bids) * block
+                self.kv_hits.note(req.request_id, cached, len(prompt), kind="probe")
+                self.telemetry.request_success.labels(
+                    finished_reason=FinishReason.CACHE_THRESHOLD.value).inc()
+                self._emit_to(out, loop, TokenEvent(
+                    request_id=req.request_id, token_id=None,
+                    finish_reason=FinishReason.CACHE_THRESHOLD,
+                    prompt_tokens=len(prompt), cached_tokens=cached))
+                return
+        with self._cond:
+            if matched_bids:
                 self.allocator.acquire_cached(matched_bids)
             blocks = matched_bids + self.allocator.alloc(need - len(matched_bids))
             evicted = list(getattr(self.allocator, "last_evicted_hashes", []))
@@ -555,7 +684,7 @@ class TorchEngine:
             self.telemetry.prefix_cached_tokens.inc(cached_tokens)
 
         win = self._prefill_window()
-        if win and len(suffix) > win:
+        if win and len(suffix) > win and not mm:
             # Long prompt: park the slot PREFILLING; _advance_prefills
             # writes one window per engine step (interleaved with decode).
             self.slots[idx] = _Slot(
@@ -568,6 +697,7 @@ class TorchEngine:
 
         row = np.zeros((1, self.max_blocks_per_seq), np.int32)
         row[0, : len(blocks)] = blocks
+        t0 = time.monotonic()
         try:
             tok_dev = self._run_prefill(req, prompt, suffix, cached_tokens,
                                         matched_bids, row)
@@ -579,6 +709,7 @@ class TorchEngine:
                 request_id=req.request_id, token_id=None,
                 finish_reason=FinishReason.ABORT, prompt_tokens=len(prompt)))
             raise
+        self.telemetry.prefill_step.observe(time.monotonic() - t0)
         self.telemetry.prompt_tokens.inc(len(suffix))
 
         slot = _Slot(req=req, out=out, loop=loop, blocks=blocks,
@@ -604,8 +735,8 @@ class TorchEngine:
                      row) -> torch.Tensor:
         """Prefill + first-token sample; returns the token on the device.
         With ``matched_bids`` the suffix continues from the KV of those
-        (cached or already written) blocks, else the whole prompt runs."""
-        t0 = time.monotonic()
+        (cached or already written) blocks, else the whole prompt runs, with
+        the request's multimodal embeddings spliced in."""
         knobs = SamplingKnobs.from_numpy(*self._sample_np([req]), self.device)
         row_t = self._to_dev(row)
         if matched_bids:
@@ -620,16 +751,27 @@ class TorchEngine:
             hidden, (k_new, v_new) = llama.forward(
                 self.params, self.mcfg,
                 self._to_dev(np.asarray([prompt], np.int32)),
-                want_kv=True, want_hidden=True)
+                want_kv=True, want_hidden=True, **self._mm_args(req))
             llama.write_prefill_kv(self.k_pages, self.v_pages, k_new, v_new,
                                    row_t, self._to_dev(np.asarray([len(prompt)], np.int32)))
             # Only the last row needs the LM head (the hidden state is the
             # forward's f32 copy of a bf16/f32 value: the cast back is exact).
             last = hidden[:, -1].to(self.dtype)
             logits = (last @ self.params["lm_head"]).float()
-        tok = sample_tokens(logits, self._sample_gen, knobs)
-        self.telemetry.prefill_step.observe(time.monotonic() - t0)
-        return tok
+        return sample_tokens(logits, self._sample_gen, knobs)
+
+    def _mm_args(self, req: EngineRequest) -> dict[str, torch.Tensor]:
+        """``llama.forward``'s splice arguments for a multimodal request (a
+        batch of one); missing or short ``mm_positions`` default to the
+        image-first layout, as in the JAX engine."""
+        if req.mm_embeds is None:
+            return {}
+        mm = np.asarray(req.mm_embeds, np.float32)
+        positions = list(req.mm_positions or [])
+        positions += range(len(positions), mm.shape[0])
+        return {"mm_embeds": self._to_dev(mm[None]),
+                "mm_positions": self._to_dev(
+                    np.asarray([positions[: mm.shape[0]]], np.int64))}
 
     def _finalize_prefills(self):
         """Land pending first tokens and emit/finish accordingly."""
@@ -681,6 +823,7 @@ class TorchEngine:
             req = s.req
             row = np.zeros((1, self.max_blocks_per_seq), np.int32)
             row[0, : len(s.blocks)] = s.blocks
+            t0 = time.monotonic()
             try:
                 # The first window runs the whole-prompt path; later ones
                 # continue from the blocks already written (block-aligned).
@@ -697,6 +840,7 @@ class TorchEngine:
                     finish_reason=FinishReason.ABORT, prompt_tokens=s.prompt_len))
                 self.telemetry.running.set(sum(x is not None for x in self.slots))
                 raise
+            self.telemetry.prefill_step.observe(time.monotonic() - t0)
             self.telemetry.prompt_tokens.inc(len(window))
             s.prefill_written = written + len(window)
             s.prefill_rest = s.prefill_rest[len(window):]

@@ -1,6 +1,5 @@
 """Engine-side request/response types (copy of
-``llm_d_inference_scheduler_tpu/engine/request.py`` without the multimodal
-and shared-storage fields the port does not serve)."""
+``llm_d_inference_scheduler_tpu/engine/request.py``)."""
 
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ class FinishReason(str, enum.Enum):
     STOP = "stop"          # EOS or stop sequence
     LENGTH = "length"      # hit max_tokens
     ABORT = "abort"        # client disconnect / eviction
+    CACHE_THRESHOLD = "cache_threshold"  # shared-storage probe: cache too cold
 
 
 @dataclasses.dataclass
@@ -27,10 +27,19 @@ class EngineRequest:
     stop_token_ids: tuple[int, ...] = ()
     ignore_eos: bool = False   # benchmark/test knob (vLLM-compatible)
     stream: bool = False
+    # Shared-storage probe (the sidecar's shared-storage connector): when the
+    # prefix-cache hit ratio of the prompt's matchable blocks is below this,
+    # the request ends at admission with FinishReason.CACHE_THRESHOLD,
+    # before any block is allocated, and the sidecar prefills remotely.
+    cache_hit_threshold: float | None = None
     # P/D disaggregation handshake, relayed by the router's sidecar: the
     # prefill leg sends {"do_remote_decode": true[, "stream_chunks": true]},
     # the decode leg the exporter's remote_* fields (engine/core.py).
     kv_transfer_params: dict[str, Any] | None = None
+    # Multimodal prefill (E/P/D): encoder vectors [M, D] (numpy) that replace
+    # the token embeddings at prompt positions mm_positions (placeholders).
+    mm_embeds: Any = None
+    mm_positions: list[int] | None = None
     arrival_time: float = dataclasses.field(default_factory=time.monotonic)
 
 

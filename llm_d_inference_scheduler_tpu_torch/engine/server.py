@@ -23,7 +23,14 @@ with the same JSON shapes, so the router schedules onto either engine alike:
   of the response, ``GET /kv/{request_id}`` (the whole export, or with
   ``?chunk=N`` / ``?ack=1`` the chunk-streamed long-poll: 200, 202 on wait
   expiry, 204 past the last chunk, 404 unknown) and
-  ``DELETE /kv/{request_id}`` (release).
+  ``DELETE /kv/{request_id}`` (release);
+- E/P/D multimodal serving, on the JAX server's wire: ``POST /v1/encode``
+  runs the vision tower over a request's ``items`` and stages the rows for
+  ``GET /ec/{request_id}``; a generate request naming ``ec_sources`` pulls
+  them from every source at once, restores the items' global order and
+  prefills with the embeddings spliced in at placeholder tokens;
+- the shared-storage probe: ``cache_hit_threshold`` in a generate body,
+  answered ``finish_reason: "cache_threshold"`` when the cache is too cold.
 
 Non-streamed responses carry ``x-kv-hit-blocks`` / ``x-kv-hit-tokens`` and
 ``x-engine-queue-ms``, and a decode leg that pulled KV ``x-kv-pull-ms``,
@@ -38,12 +45,18 @@ Run: ``python -m llm_d_inference_scheduler_tpu_torch.engine.server --model llama
 from __future__ import annotations
 
 import asyncio
+import collections
+import hashlib
+import http.client
 import json
 import logging
+import ssl
 import time
 import urllib.parse
 import uuid
 from typing import Any
+
+import numpy as np
 
 from ..utils.tracing import tracer
 from . import kv_wire
@@ -217,7 +230,14 @@ class EngineServer:
             ("GET", "/kv_events"): self.kv_events_stream,
             ("GET", "/debug/kv"): self.kv_debug,
             ("GET", "/debug/traces"): self.traces,
+            ("POST", "/v1/encode"): self.encode,
+            ("GET", "/ec/"): self.ec_fetch,
         }
+        # E/P/D encode store: request_id -> {"embeds": f32 [rows, D] on the
+        # host, "indices": global item indices}, an LRU bounded so that
+        # unclaimed embeddings cannot grow host memory without limit.
+        self.ec_store: collections.OrderedDict[str, dict[str, Any]] = \
+            collections.OrderedDict()
 
     # ---- lifecycle -----------------------------------------------------
 
@@ -300,7 +320,7 @@ class EngineServer:
             writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
             await writer.drain()
         body = await reader.readexactly(n) if n else b""
-        route = "/kv/" if path.startswith("/kv/") else path
+        route = next((p for p in ("/kv/", "/ec/") if path.startswith(p)), path)
         handler = self._routes.get((method, route))
         try:
             if handler is None:
@@ -339,7 +359,161 @@ class EngineServer:
             return prompt
         raise HTTPError(400, "prompt must be a string or a list of token ids")
 
-    def _build_request(self, body: dict[str, Any], prompt_ids: list[int]) -> EngineRequest:
+    # ---- E/P/D multimodal ------------------------------------------------
+
+    EC_CAPACITY = 1024       # staged encode results kept (LRU)
+    EC_TIMEOUT_S = 10.0      # each /ec pull's socket timeout
+
+    def _item_pixels(self, item: dict[str, Any], vcfg) -> np.ndarray:
+        """Pixels of one multimodal item: inline ``pixels`` (H, W[, C]
+        floats), zero-padded or cropped to the tower's square input; any
+        other item (an image URL: the engine fetches nothing) gets seeded
+        pseudo-pixels from the SHA-256 of its JSON, so two URLs give two
+        embeddings."""
+        px = item.get("pixels")
+        if px is not None:
+            try:
+                arr = np.asarray(px, np.float32)
+            except (TypeError, ValueError):
+                raise HTTPError(400, "item pixels must be a numeric H x W [x C] array")
+            if arr.ndim == 2:
+                arr = arr[..., None]
+            if arr.ndim != 3:
+                raise HTTPError(400, "item pixels must be a numeric H x W [x C] array")
+            out = np.zeros((vcfg.image_size, vcfg.image_size, vcfg.channels),
+                           np.float32)
+            h = min(arr.shape[0], vcfg.image_size)
+            w = min(arr.shape[1], vcfg.image_size)
+            c = min(arr.shape[2], vcfg.channels)
+            out[:h, :w, :c] = arr[:h, :w, :c]
+            return out
+        digest = hashlib.sha256(json.dumps(item, sort_keys=True).encode()).digest()
+        rng = np.random.default_rng(int.from_bytes(digest[:8], "little"))
+        return rng.standard_normal(
+            (vcfg.image_size, vcfg.image_size, vcfg.channels)).astype(np.float32)
+
+    async def encode(self, conn: _Conn, raw: bytes) -> None:
+        """E/P/D encode leg, the sidecar's fan-out target: run the vision
+        tower over the request's ``items`` and stage the rows for the
+        prefill and decode engines to pull from ``GET /ec/{request_id}``."""
+        body = self._json_body(raw)
+        rid = str(body.get("request_id") or f"enc-{uuid.uuid4().hex[:8]}")
+        items = body.get("items") or []
+        if not isinstance(items, list) or not all(isinstance(i, dict) for i in items):
+            raise HTTPError(400, "items must be a list of objects")
+        indices = body.get("item_indices")
+        if not isinstance(indices, list) or len(indices) != len(items):
+            indices = list(range(len(items)))
+        try:
+            indices = [int(i) for i in indices]
+        except (TypeError, ValueError):
+            raise HTTPError(400, "item_indices must be integers")
+        if items:
+            vcfg, _ = await asyncio.to_thread(self.engine.vision)
+            pixels = np.stack([self._item_pixels(it, vcfg) for it in items])
+            embeds = await asyncio.to_thread(self.engine.encode_images, pixels)
+        else:
+            embeds = np.zeros((0, 0), np.float32)
+        self.ec_store[rid] = {"embeds": embeds, "indices": indices}
+        self.ec_store.move_to_end(rid)
+        while len(self.ec_store) > self.EC_CAPACITY:
+            self.ec_store.popitem(last=False)
+        await conn.send_json({"request_id": rid, "encoded_items": len(items),
+                              "embedding_tokens": int(embeds.shape[0])})
+
+    async def ec_fetch(self, conn: _Conn, raw: bytes) -> None:
+        """A staged encode result as the JAX server sends it: JSON float
+        rows, the width and the global item indices."""
+        rid = urllib.parse.unquote(conn.path[len("/ec/"):])
+        rec = self.ec_store.get(rid)
+        if rec is None:
+            raise HTTPError(404, f"no encoded embeddings for {rid}")
+        embeds = rec["embeds"]
+        doc = {"request_id": rid,
+               "dim": int(embeds.shape[1]) if embeds.size else 0,
+               "item_indices": rec["indices"],
+               "embeddings": embeds.tolist()}
+        # ~1.3 MB of JSON per llama3-8b image: encoded off the event loop.
+        payload = await asyncio.to_thread(lambda: json.dumps(doc).encode())
+        await conn.send(200, payload, "application/json")
+
+    def _fetch_ec(self, source: str, rid: str, headers: dict[str, str]) -> bytes | None:
+        """GET ``/ec/{rid}`` from one encode source (``host:port``, or a URL
+        when the sidecar's encoder leg is TLS), on a worker thread; the
+        body, or None after a warning. An ``https`` source is not verified,
+        the JAX engine's default client policy."""
+        base = urllib.parse.urlsplit(source if "://" in source else f"http://{source}")
+        try:
+            if base.scheme == "https":
+                conn = http.client.HTTPSConnection(
+                    base.hostname, base.port or 443, timeout=self.EC_TIMEOUT_S,
+                    context=ssl._create_unverified_context())
+            else:
+                conn = http.client.HTTPConnection(base.hostname, base.port or 80,
+                                                  timeout=self.EC_TIMEOUT_S)
+            try:
+                path = (base.path.rstrip("/") + "/ec/"
+                        + urllib.parse.quote(rid, safe=""))
+                conn.request("GET", path, headers=headers)
+                r = conn.getresponse()
+                payload = r.read()
+            finally:
+                conn.close()
+            if r.status != 200:
+                raise ValueError(f"answered {r.status}")
+            return payload
+        except (OSError, http.client.HTTPException, ValueError, TypeError) as e:
+            log.warning("ec fetch from %s for %s failed: %s", source, rid, e)
+            return None
+
+    async def _resolve_multimodal(self, body: dict[str, Any], prompt_ids: list[int]
+                                  ) -> tuple[list[int], np.ndarray | None, list[int] | None]:
+        """E/P/D prefill: pull the staged encoder embeddings from every
+        ``ec_sources`` entry at once, restore the items' global order from
+        each source's ``item_indices`` (every item has the same row count),
+        and prepend one placeholder token 0 per row (image-first layout).
+        Returns (prompt, mm_embeds [M, D] or None, mm_positions or None);
+        rows whose width is not the model's d_model are ignored."""
+        sources = body.get("ec_sources") or []
+        if not sources:
+            return prompt_ids, None, None
+        if not isinstance(sources, list) or not all(isinstance(h, str) for h in sources):
+            raise HTTPError(400, "ec_sources must be a list of host:port strings")
+        rid = str(body.get("request_id") or "")
+        headers: dict[str, str] = {}
+        tracer.inject_headers(headers)
+        bodies = await asyncio.gather(*[
+            asyncio.to_thread(self._fetch_ec, h, rid, headers) for h in sources])
+        tagged = []
+        for payload in bodies:
+            if payload is None:
+                continue
+            try:
+                doc = json.loads(payload)
+                arr = np.asarray(doc.get("embeddings") or [], np.float32)
+                indices = [int(i) for i in (doc.get("item_indices") or [0])]
+            except (ValueError, TypeError, AttributeError) as e:
+                log.warning("ec payload for %s unreadable: %s", rid, e)
+                continue
+            if arr.ndim != 2 or not arr.size:
+                continue
+            per = arr.shape[0] // max(len(indices), 1)
+            for j, idx in enumerate(indices):
+                tagged.append((idx, arr[j * per:(j + 1) * per]))
+        if not tagged:
+            return prompt_ids, None, None
+        tagged.sort(key=lambda t: t[0])
+        mm = np.concatenate([rows for _, rows in tagged], axis=0)
+        if mm.shape[1] != self.engine.mcfg.d_model:
+            log.warning("encoder dim %d != model d_model %d; ignoring the "
+                        "multimodal embeddings", mm.shape[1], self.engine.mcfg.d_model)
+            return prompt_ids, None, None
+        m = mm.shape[0]
+        return [0] * m + prompt_ids, mm, list(range(m))
+
+    def _build_request(self, body: dict[str, Any], prompt_ids: list[int],
+                       mm_embeds: np.ndarray | None = None,
+                       mm_positions: list[int] | None = None) -> EngineRequest:
         # An over-context prompt is a client error; max_tokens that overruns
         # the context is clamped (finish_reason "length"), as the JAX server.
         if len(prompt_ids) + 1 > self.cfg.max_model_len:
@@ -363,7 +537,12 @@ class EngineServer:
                 stream=bool(body.get("stream", False)),
                 stop_token_ids=tuple(int(t) for t in (body.get("stop_token_ids") or ())),
                 ignore_eos=bool(body.get("ignore_eos", False)),
+                cache_hit_threshold=(float(body["cache_hit_threshold"])
+                                     if body.get("cache_hit_threshold") is not None
+                                     else None),
                 kv_transfer_params=ktp,
+                mm_embeds=mm_embeds,
+                mm_positions=mm_positions,
             )
         except (TypeError, ValueError) as e:
             raise HTTPError(400, f"invalid sampling/limit parameter: {e}")
@@ -554,12 +733,16 @@ class EngineServer:
         self._response_headers(req)
 
     async def _run_request(self, span, body: dict[str, Any],
-                           prompt_ids: list[int],
-                           stream_fn) -> tuple[EngineRequest, dict | None]:
+                           prompt_ids: list[int], stream_fn,
+                           multimodal: bool = False) -> tuple[EngineRequest, dict | None]:
         """Submit one generate request inside its engine.request span and
         either stream it with ``stream_fn(req, out, timing)`` (returns
-        (req, None)) or collect it (returns (req, the completion dict))."""
-        req = self._build_request(body, prompt_ids)
+        (req, None)) or collect it (returns (req, the completion dict)).
+        With ``multimodal`` the body's ``ec_sources`` are resolved first."""
+        mm = mm_pos = None
+        if multimodal:
+            prompt_ids, mm, mm_pos = await self._resolve_multimodal(body, prompt_ids)
+        req = self._build_request(body, prompt_ids, mm, mm_pos)
         span.set_attribute("request_id", req.request_id)
         timing: dict[str, float] = {}
         t0 = time.monotonic()
@@ -584,7 +767,8 @@ class EngineServer:
             req, resp = await self._run_request(
                 span, body, prompt_ids,
                 lambda req, out, timing: self._stream(conn, req, out, chat,
-                                                      stops, timing))
+                                                      stops, timing),
+                multimodal=True)
         if resp is None:
             return
         if chat:
@@ -637,7 +821,8 @@ class EngineServer:
             "id": f"resp_{req.request_id}",
             "object": "response",
             "created_at": resp["created"],
-            "status": "incomplete" if finish == "length" else "completed",
+            "status": ("incomplete" if finish in ("length", "cache_threshold")
+                       else "completed"),
             "model": self.engine.model_name,
             "output": [{
                 "type": "message", "id": f"msg_{req.request_id}",
@@ -650,9 +835,10 @@ class EngineServer:
                       "total_tokens": usage["total_tokens"]},
         }
         if wrapped["status"] == "incomplete":
-            # The sidecar reads the truncation cause from here (a Responses
-            # body has no choices[].finish_reason).
-            wrapped["incomplete_details"] = {"reason": "max_output_tokens"}
+            # The sidecar's shared-storage probe reads the truncation cause
+            # from here (a Responses body has no choices[].finish_reason).
+            wrapped["incomplete_details"] = {
+                "reason": "max_output_tokens" if finish == "length" else finish}
         if "kv_transfer_params" in resp:
             wrapped["kv_transfer_params"] = resp["kv_transfer_params"]
         await conn.send_json(wrapped)
@@ -746,13 +932,13 @@ class EngineServer:
         await conn.send(200, self.engine.telemetry.render(), METRICS_CONTENT_TYPE)
 
     async def health(self, conn: _Conn, raw: bytes) -> None:
-        status = ("draining" if self.draining
+        status = ("failed" if self.engine.failure is not None
+                  else "draining" if self.draining
                   else "warming" if self.engine.warming else "ok")
         await conn.send_json({"status": status,
                               "engine_id": self.engine.engine_id,
                               "model": self.engine.model_name,
-                              # One engine serves either P/D leg.
-                              "role": "both"},
+                              "role": self.cfg.role},
                              status=200 if status == "ok" else 503)
 
     async def traces(self, conn: _Conn, raw: bytes) -> None:
@@ -905,7 +1091,9 @@ class EngineServer:
 
 async def run_server(cfg: EngineConfig, drain_timeout_s: float = 30.0):
     """Serve until SIGTERM/SIGINT, then drain: readiness flips 503,
-    in-flight requests finish (bounded by ``drain_timeout_s``), then stop."""
+    in-flight requests finish (bounded by ``drain_timeout_s``), then stop.
+    An engine that stopped on its own (a failed warm-up) stops the server
+    with the engine's error."""
     import signal
 
     server = EngineServer(cfg)
@@ -918,21 +1106,36 @@ async def run_server(cfg: EngineConfig, drain_timeout_s: float = 30.0):
         except (NotImplementedError, RuntimeError):
             pass
     try:
-        await stop_ev.wait()
+        while not stop_ev.is_set():
+            if server.engine.failure is not None:
+                raise RuntimeError("the engine stopped: its warm-up failed") \
+                    from server.engine.failure
+            try:
+                await asyncio.wait_for(stop_ev.wait(), timeout=0.5)
+            except asyncio.TimeoutError:
+                pass
         server.draining = True
         deadline = loop.time() + drain_timeout_s
         while loop.time() < deadline and not server.engine.idle():
             await asyncio.sleep(0.25)
     except asyncio.CancelledError:
         pass
-    await server.stop()
+    finally:
+        await server.stop()
 
 
-def main(argv: list[str] | None = None):
+def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
+    """The engine config and drain timeout of a command line."""
     import argparse
 
     p = argparse.ArgumentParser(description="PyTorch engine server (OpenAI surface)")
     p.add_argument("--model", default="tiny")
+    p.add_argument("--role", default="both",
+                   choices=("both", "prefill", "decode", "encode"),
+                   help="P/D role reported on /health")
+    p.add_argument("--warmup", action="store_true",
+                   help="build the kernels and run each path once before "
+                        "/health reports ok")
     p.add_argument("--served-model-name", default=None)
     p.add_argument("--port", type=int, default=8200)
     p.add_argument("--host", default="127.0.0.1")
@@ -958,9 +1161,15 @@ def main(argv: list[str] | None = None):
                        decode_chunk=args.decode_chunk,
                        prefill_chunk=args.prefill_chunk,
                        kv_events_port=args.kv_events_port, seed=args.seed,
+                       role=args.role, warmup=args.warmup,
                        device=args.device, dtype=args.dtype)
+    return cfg, args.drain_timeout
+
+
+def main(argv: list[str] | None = None):
+    cfg, drain_timeout_s = parse_config(argv)
     logging.basicConfig(level=logging.INFO)
-    asyncio.run(run_server(cfg, drain_timeout_s=args.drain_timeout))
+    asyncio.run(run_server(cfg, drain_timeout_s=drain_timeout_s))
 
 
 if __name__ == "__main__":

@@ -158,16 +158,25 @@ def forward(
     want_kv: bool = False,
     want_hidden: bool = False,
     kv_valid: torch.Tensor | None = None,     # [B, S] padding mask
+    mm_embeds: torch.Tensor | None = None,    # [B, M, D] multimodal vectors
+    mm_positions: torch.Tensor | None = None,  # [B, M] target positions
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
     """Full-sequence forward (prefill). Returns (logits [B, S, V] f32 — or
     the final-norm hidden states [B, S, D] as f32 with ``want_hidden`` —,
-    (K, V) each [L, B, S, Hkv, Dh] if ``want_kv``)."""
+    (K, V) each [L, B, S, Hkv, Dh] if ``want_kv``).
+
+    Multimodal prefill (E/P/D): ``mm_embeds`` replace the token embeddings
+    at ``mm_positions`` (encoder outputs spliced in at placeholder tokens),
+    cast to the embeddings' dtype; a position ``>= S`` (a caller's padding)
+    is dropped, as the JAX scatter's ``mode="drop"`` drops it."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     x = params["embed"][tokens.long()]
+    if mm_embeds is not None:
+        x = _splice(x, mm_embeds, mm_positions)
     ks, vs = [], []
     for lp in layer_params(params):
         q, k, v = _qkv(cfg, lp, x, cos, sin)
@@ -182,6 +191,23 @@ def forward(
     if want_hidden:
         return x.float(), kv
     return (x @ params["lm_head"]).float(), kv
+
+
+def _splice(x: torch.Tensor, mm_embeds: torch.Tensor,
+            mm_positions: torch.Tensor) -> torch.Tensor:
+    """``x`` [B, S, D] with rows ``mm_positions`` [B, M] overwritten by
+    ``mm_embeds`` [B, M, D]. Indexing raises on an out-of-range position
+    where the JAX scatter drops it, so such positions (negative ones count
+    from the end, as in JAX) write a scratch row past the end, sliced off
+    afterwards: no host sync to filter them."""
+    B, S, D = x.shape
+    pos = mm_positions.long()
+    pos = torch.where(pos < 0, pos + S, pos)
+    pos = torch.where((pos >= 0) & (pos < S), pos, torch.full_like(pos, S))
+    rows = torch.arange(B, device=x.device)[:, None].expand_as(pos)
+    out = torch.cat([x, x.new_zeros(B, 1, D)], dim=1)
+    out[rows, pos] = mm_embeds.to(x.dtype)
+    return out[:, :S]
 
 
 def decode_step(

@@ -2,8 +2,8 @@
 
 The port's own copy of the parts of ``llm_d_inference_scheduler_tpu/router/
 tracing.py`` that the engine uses: ``traceparent`` parse and format, ``Span``
-and the ``Tracer``'s ``span`` / ``span_from_headers`` / ``record`` /
-``snapshot`` over a ring of finished span dicts, which the engine serves on
+and the ``Tracer``'s ``span`` / ``span_from_headers`` / ``inject_headers`` /
+``record`` / ``snapshot`` over a ring of finished span dicts, which the engine serves on
 ``GET /debug/traces``. The span dicts keep the router's keys, because the
 gateway's ``/debug/traces?merge=1`` merges them with its own by ``span_id``.
 No exporters. Configured like the router's tracer: ``TRACING_ENABLED=1``,
@@ -163,6 +163,18 @@ class Tracer:
                 state = headers.get(TRACESTATE) or None
         return self.span(name, remote_parent=remote, tracestate=state,
                          **attributes)
+
+    def inject_headers(self, headers: dict[str, str]) -> None:
+        """Stamp the current span's W3C context onto an outbound header
+        mapping; a sampled-out trace propagates as flags 00 (fresh ids: the
+        receiver reads only the drop bit). No-op without a span context."""
+        s = _current_span.get()
+        if isinstance(s, Span):
+            headers[TRACEPARENT] = format_traceparent(s)
+            if s.tracestate:
+                headers[TRACESTATE] = s.tracestate
+        elif s is _DROPPED:
+            headers[TRACEPARENT] = f"00-{uuid.uuid4().hex}-{uuid.uuid4().hex[:16]}-00"
 
     def current_span(self) -> Span | None:
         s = _current_span.get()
