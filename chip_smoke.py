@@ -66,12 +66,28 @@ Phases (any failure exits non-zero):
                K2 by path (every prefill and decode step on wgmma; the
                embeddings n_layers wgmma launches per call); the grouped
                embeddings held against an engine with the dense FFN
+  9. ckpt      converted HF checkpoints: an Orbax-shaped directory is
+               refused; then, for Llama-3-8B (8 of 32 layers) and Mixtral-8x7B
+               (2 of 32 layers, grouped_moe=True) at full width, an HF-layout
+               checkpoint (HF names, [out, in], config.json, sharded) is
+               written from a seed with the port's safetensors writer,
+               converted by the port's CLI in a subprocess, and served by
+               EngineServer from the server's own parser with --model <dir>
+               --prefill-batch 4 and no in-memory params: the loaded weights
+               equal the in-memory conversion bitwise, eight concurrent
+               same-bucket prompts prefill in two batches of four, and their
+               32 greedy tokens equal an in-memory prefill_batch=1 engine's
+               up to reported near-tie flips; K1 (and K2 on wgmma, in every
+               batched prefill) counted; x-request-timeout answers 504 and
+               the slot and blocks come back; prints bytes, convert and
+               load-to-ready seconds, and peak host RSS
 The lines before the last carry the card's name and power limit and a JSON
 object listing each kernel once for every serving path that launches it
 (the P/D decode engine's K1 launches as path "llama3-8b P/D decode", the
 E/P/D decode leg's as "llama3-8b E/P/D decode", K2's
 launches of the Mixtral /v1/embeddings calls as path
-"mixtral-8x7b-16l embeddings"), with that path's launch count (K2's entry also by kernel path, and its
+"mixtral-8x7b-16l embeddings", the checkpoint phase's as "ckpt
+llama3-8b-8l serve" and "ckpt mixtral-8x7b-2l serve"), with that path's launch count (K2's entry also by kernel path, and its
 prefill-size times under prefill_*); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -82,6 +98,7 @@ import asyncio
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1837,6 +1854,379 @@ def phase_moe_decode(cfg, params) -> None:
     del k_pages, v_pages
 
 
+# ---- phase 9: converted HF checkpoints -------------------------------------
+
+# Published configs (the models' config.json on the HF hub), cut in depth
+# only: every layer has the full model's shapes. The weights exist twice on
+# disk (HF layout and converted), which bounds the depth: Llama-3-8B at 8 of
+# 32 layers is ~5.6 GB a copy, Mixtral-8x7B at 2 of 32 layers ~6.3 GB.
+HF_CONFIGS = {
+    "llama3-8b": {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "hidden_size": 4096, "intermediate_size": 14336, "num_attention_heads": 32,
+        "num_key_value_heads": 8, "num_hidden_layers": 8, "vocab_size": 128256,
+        "rope_theta": 500000.0, "rms_norm_eps": 1e-5, "max_position_embeddings": 8192,
+        "bos_token_id": 128000, "eos_token_id": 128001, "hidden_act": "silu",
+        "tie_word_embeddings": False, "torch_dtype": "bfloat16"},
+    "mixtral-8x7b": {
+        "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+        "hidden_size": 4096, "intermediate_size": 14336, "num_attention_heads": 32,
+        "num_key_value_heads": 8, "num_hidden_layers": 2, "vocab_size": 32000,
+        "rope_theta": 1e6, "rms_norm_eps": 1e-5, "max_position_embeddings": 32768,
+        "num_local_experts": 8, "num_experts_per_tok": 2, "bos_token_id": 1,
+        "eos_token_id": 2, "hidden_act": "silu", "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16"},
+}
+CKPT_PROMPTS = 8       # concurrent requests, one bucket (65-128 tokens)
+CKPT_TOKENS = 32
+CKPT_PREFILL_BATCH = 4
+# A served token may leave the in-memory single-path engine's only at a
+# near-tie: there, both tokens' logits (bf16 values) lie within this many
+# bf16 steps of the top logit (random weights over a 128k vocab put many
+# logits within a step or two of the top). The batched [N, S] prefill runs
+# other cuBLAS algorithms than [1, S] (another summation order, rounded to
+# bf16 at every layer), which moves logits by a few steps; a wrong row, a
+# wrong position or padding leaking into a real row moves them by whole
+# units (hundreds of steps). The same limit as MOE_ROUTE_TIE_STEPS.
+TOKEN_TIE_STEPS = 8
+
+
+def hf_state_dict(hf: dict, seed: int, device: str = "cuda") -> dict:
+    """Seeded bf16 weights on the card under HF names, in HF's [out, in]
+    layout: N(0, 1) * fan_in**-0.5 projections, norms near 1 (so that a
+    swapped norm would show)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    D, F, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    H, Hkv = hf["num_attention_heads"], hf["num_key_value_heads"]
+    Dh = D // H
+
+    def w(out_f, in_f):
+        t = torch.randn((out_f, in_f), generator=gen, device=device, dtype=torch.bfloat16)
+        return t.mul_(in_f ** -0.5)
+
+    def norm():
+        return (1 + 0.1 * torch.randn((D,), generator=gen, device=device)).bfloat16()
+
+    sd = {"model.embed_tokens.weight": w(V, D)}
+    for i in range(hf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        sd |= {p + "self_attn.q_proj.weight": w(H * Dh, D),
+               p + "self_attn.k_proj.weight": w(Hkv * Dh, D),
+               p + "self_attn.v_proj.weight": w(Hkv * Dh, D),
+               p + "self_attn.o_proj.weight": w(D, H * Dh),
+               p + "input_layernorm.weight": norm(),
+               p + "post_attention_layernorm.weight": norm()}
+        if hf.get("num_local_experts"):
+            moe = p + "block_sparse_moe."
+            sd[moe + "gate.weight"] = w(hf["num_local_experts"], D)
+            for e in range(hf["num_local_experts"]):
+                sd |= {f"{moe}experts.{e}.w1.weight": w(F, D),
+                       f"{moe}experts.{e}.w3.weight": w(F, D),
+                       f"{moe}experts.{e}.w2.weight": w(D, F)}
+        else:
+            sd |= {p + "mlp.gate_proj.weight": w(F, D), p + "mlp.up_proj.weight": w(F, D),
+                   p + "mlp.down_proj.weight": w(D, F)}
+    sd |= {"model.norm.weight": norm(), "lm_head.weight": w(V, D)}
+    return sd
+
+
+def write_hf_checkpoint(sd: dict, hf: dict, path: str) -> int:
+    """An HF checkpoint directory written with the port's safetensors
+    writer: one shard per layer (and one for the rest), the shard index
+    and config.json; returns the bytes of the shards."""
+    from llm_d_inference_scheduler_tpu_torch.models import safetensors_io
+
+    os.makedirs(path)
+    groups: dict[str, list] = {}
+    for name, t in sd.items():
+        key = name.split(".")[2] if name.startswith("model.layers.") else "rest"
+        groups.setdefault(key, []).append((name, t))
+    n, weight_map, total = len(groups), {}, 0
+    for j, items in enumerate(groups.values()):
+        shard = f"model-{j + 1:05d}-of-{n:05d}.safetensors"
+        total += safetensors_io.save_file(items, os.path.join(path, shard),
+                                          metadata={"format": "pt"})
+        weight_map |= {name: shard for name, _ in items}
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f, indent=2)
+    return total
+
+
+def check_disk(need: int) -> None:
+    """Fail with the byte counts when the temp dir lacks ``need`` bytes."""
+    import shutil
+
+    root = tempfile.gettempdir()
+    free = shutil.disk_usage(root).free
+    log(f"[ckpt] {free} bytes free at {root}; the two copies need {need}")
+    if free < need:
+        fail(f"ckpt: {need} bytes of disk needed for the HF and converted "
+             f"checkpoints, {free} free at {root}")
+
+
+def ckpt_prompts(vocab: int) -> list[list[int]]:
+    """Token-id prompts of 90-120 tokens (one prefill bucket, 128), seeded."""
+    gen = torch.Generator().manual_seed(9)
+    return [torch.randint(3, min(vocab, 32000), (90 + 4 * i,), generator=gen).tolist()
+            for i in range(CKPT_PROMPTS)]
+
+
+def host_rss_gb() -> tuple[float | None, float]:
+    """This process's resident host memory now (VmRSS; None where /proc
+    does not give it) and its peak over the process's life, GB."""
+    import resource
+
+    now = None
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1]) / 1e6
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def run_measured(cmd: list[str], cwd: str) -> tuple[int, str, float]:
+    """Run ``cmd``; its exit code, output and peak resident memory, GB."""
+    with tempfile.TemporaryFile() as out:
+        p = subprocess.Popen(cmd, cwd=cwd, stdout=out, stderr=subprocess.STDOUT)
+        _, status, usage = os.wait4(p.pid, 0)
+        p.returncode = os.waitstatus_to_exitcode(status)
+        out.seek(0)
+        return p.returncode, out.read().decode(errors="replace"), usage.ru_maxrss / 1e6
+
+
+def excuse_flip(params, mcfg, prompt: list[int], want: list[int], got: list[int],
+                at: int) -> str:
+    """Where the served tokens leave the reference's (position ``at``), both
+    tokens' logits must lie within TOKEN_TIE_STEPS bf16 steps of the top
+    logit of the reference's model there (a whole-sequence forward over the
+    prompt and the reference's tokens so far); returns the report, or
+    fails."""
+    from llm_d_inference_scheduler_tpu_torch.models import llama
+
+    ids = torch.tensor([prompt + want[:at]], device=params["embed"].device)
+    with torch.no_grad():
+        logits = llama.forward(params, mcfg, ids)[0][0, -1]
+    top = float(logits.max())
+    step = 2.0 ** (math.floor(math.log2(abs(top))) - 7)
+    gaps = [(top - float(logits[t])) / step for t in (got[at], want[at])]
+    rank = int((logits > logits[got[at]]).sum())
+    line = (f"position {at}: served {got[at]} (rank {rank}), reference {want[at]}; "
+            f"below the top logit {top:.4f} by {gaps[0]:.1f} and {gaps[1]:.1f} "
+            f"bf16 steps of {step:.4e}")
+    if max(gaps) > TOKEN_TIE_STEPS:
+        fail(f"ckpt: the served tokens leave the in-memory engine's at no near-tie: {line}")
+    return line
+
+
+async def serve_checkpoint(family: str, card: str, k1: dict, k2: dict, *,
+                           device: str = "cuda") -> list[dict]:
+    """Write the family's HF checkpoint from a seed, convert it with the
+    port's CLI in a subprocess, serve it through the server's parser and
+    EngineServer with --model <converted dir> --prefill-batch 4 and no
+    in-memory params, and hold eight concurrent same-bucket prompts'
+    greedy tokens against an engine given the same weights in memory with
+    prefill_batch=1. Returns the kernel entries of the loaded path."""
+    from llm_d_inference_scheduler_tpu_torch import ops
+    from llm_d_inference_scheduler_tpu_torch.engine import checkpoint
+    from llm_d_inference_scheduler_tpu_torch.engine import server as server_mod
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.models import convert_hf, llama
+    from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe, paged_attention
+
+    hf = HF_CONFIGS[family]
+    moe = bool(hf.get("num_local_experts"))
+    tag = f"ckpt {family}-{hf['num_hidden_layers']}l"
+    mcfg = convert_hf.config_from_hf(hf)
+    n_bytes = sum(2 * math.prod(s) for s in llama.param_shapes(mcfg).values())
+    check_disk(int(2 * n_bytes * 1.02) + (1 << 30))
+    with tempfile.TemporaryDirectory() as tmp:
+        hf_dir, out_dir = os.path.join(tmp, "hf"), os.path.join(tmp, "converted")
+        sd = hf_state_dict(hf, seed=3, device=device)
+        t0 = time.monotonic()
+        hf_bytes = write_hf_checkpoint(sd, hf, hf_dir)
+        write_s = time.monotonic() - t0
+        ref_params = convert_hf.convert_state_dict(sd, mcfg, device=device)
+        del sd
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        rc, text, cli_rss = run_measured(
+            [sys.executable, "-m", "llm_d_inference_scheduler_tpu_torch.models.convert_hf",
+             hf_dir, out_dir, "--device", device],
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        convert_s = time.monotonic() - t0
+        if rc != 0:
+            fail(f"{tag}: the converter CLI exited {rc}: {text[-2000:]}")
+        out_bytes = os.path.getsize(os.path.join(out_dir, checkpoint.WEIGHTS))
+        log(f"[{tag}] {card}: HF checkpoint {hf_bytes} bytes written in {write_s:.2f}s; "
+            f"the CLI converted it in {convert_s:.2f}s ({text.strip()}), "
+            f"{out_bytes} bytes, its peak host RSS {cli_rss:.2f} GB")
+
+        argv = ["--model", out_dir, "--prefill-batch", str(CKPT_PREFILL_BATCH),
+                "--port", "0", "--max-batch", "8", "--max-model-len", "2048",
+                "--kv-events-port", "0", "--device", device]
+        cfg, _ = server_mod.parse_config(argv)
+        if moe:  # no CLI flag, as on the JAX server
+            cfg = dataclasses.replace(cfg, grouped_moe=True)
+        rss_before, _ = host_rss_gb()
+        t0 = time.monotonic()
+        server = server_mod.EngineServer(cfg)
+        await server.start()
+        engine = server.engine
+        try:
+            await asyncio.to_thread(wait_for, lambda: health(server.port)[0] == 200,
+                                    60, f"{tag}: /health ok")
+            load_s = time.monotonic() - t0
+            rss_loaded, rss_peak = host_rss_gb()
+            loaded, want_flat = (llama.flat_params(p) for p in (engine.params, ref_params))
+            if set(loaded) != set(want_flat) or not all(
+                    torch.equal(loaded[k], want_flat[k]) for k in want_flat):
+                fail(f"{tag}: the loaded weights differ from the in-memory conversion")
+            del loaded, want_flat
+            got, _ = tap_engine(engine)
+            prompts = ckpt_prompts(mcfg.vocab_size)
+            sizes, batch_k2 = [], []
+            run_batch = engine._run_batched_prefill
+
+            def counted(entries):
+                before = grouped_moe.launches
+                sizes.append(len(entries))
+                run_batch(entries)
+                batch_k2.append(grouped_moe.launches - before)
+
+            engine._run_batched_prefill = counted
+            # The requests wait at admission until all have arrived, so that
+            # they are admitted as one group (two batches of four).
+            admit = engine._admit
+            engine._admit = lambda: (admit() if len(engine._waiting) >= CKPT_PROMPTS
+                                     or any(engine.slots) else None)
+            ops.reset_kernel_launches()
+            steps0 = engine.decode_steps
+            t0 = time.monotonic()
+            await asyncio.gather(*[asyncio.to_thread(http_post, server.port, {
+                "prompt": p, "max_tokens": CKPT_TOKENS, "temperature": 0,
+                "ignore_eos": True, "request_id": f"ck{i}"}) for i, p in enumerate(prompts)])
+            wall = time.monotonic() - t0
+            launches = ops.kernel_launches()
+            paths = dict(grouped_moe.path_launches)
+            steps = engine.decode_steps - steps0
+            engine._admit = admit
+            if family == "llama3-8b":
+                await asyncio.to_thread(check_deadline_on_card, server, tag)
+        finally:
+            await server.stop()
+        del engine, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The reference: the same weights in memory, the single path.
+        ref_cfg = dataclasses.replace(cfg, prefill_batch=1, checkpoint_path="")
+        ref = server_mod.EngineServer(ref_cfg, engine=TorchEngine(ref_cfg, params=ref_params))
+        want, _ = tap_engine(ref.engine)
+        await ref.start()
+        try:
+            await asyncio.gather(*[asyncio.to_thread(http_post, ref.port, {
+                "prompt": p, "max_tokens": CKPT_TOKENS, "temperature": 0,
+                "ignore_eos": True, "request_id": f"ck{i}"}) for i, p in enumerate(prompts)])
+        finally:
+            await ref.stop()
+        flips = []
+        for i, p in enumerate(prompts):
+            g, w = got.get(f"ck{i}", []), want.get(f"ck{i}", [])
+            if len(g) != CKPT_TOKENS or len(w) != CKPT_TOKENS:
+                fail(f"{tag}: request {i} gave {len(g)} tokens, the reference {len(w)}")
+            at = first_divergence(g, w)
+            if at is not None:
+                flips.append(f"request {i}: " + excuse_flip(ref_params, ref.engine.mcfg,
+                                                            p, w, g, at))
+        del ref, ref_params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    log(f"[{tag}] {card}: load to /health ok {load_s:.2f}s, host RSS (GB) {rss_before} "
+        f"before, {rss_loaded} loaded, the process's peak so far {rss_peak:.2f}; "
+        f"{CKPT_PROMPTS} requests x {CKPT_TOKENS} tokens in {wall:.3f}s; batched "
+        f"prefills {sizes} (rows), K2 launches in them {batch_k2}; decode steps "
+        f"{steps}; launches {launches}, K2 by path {paths}")
+    log(f"[{tag}] tokens equal to the in-memory prefill_batch=1 engine's for "
+        f"{CKPT_PROMPTS - len(flips)} of {CKPT_PROMPTS} requests; near-tie flips "
+        f"(limit {TOKEN_TIE_STEPS} bf16 steps): {flips or 'none'}")
+    if sizes[:2] != [CKPT_PREFILL_BATCH, CKPT_PREFILL_BATCH]:
+        fail(f"{tag}: the eight prompts did not prefill in two batches of four: {sizes}")
+    need = mcfg.n_layers * steps
+    if steps <= 0 or launches[paged_attention.KERNEL] < need:
+        fail(f"{tag}: the decode did not go through K1 ({launches} < {need})")
+    entries = [{**k1, "path": f"{tag} serve",
+                "launches": launches[paged_attention.KERNEL]}]
+    if moe:
+        need_k2 = mcfg.n_layers * (len(sizes) + steps)
+        if paths["wgmma"] < need_k2 or batch_k2 != [mcfg.n_layers] * len(sizes):
+            fail(f"{tag}: the batched prefills and decode steps did not all go "
+                 f"through K2's wgmma path ({paths}, in batches {batch_k2}, "
+                 f"need {need_k2})")
+        entries.append({**k2, "path": f"{tag} serve",
+                        "launches": launches[grouped_moe.KERNEL],
+                        "launches_by_path": paths,
+                        "batched_prefill_launches": sum(batch_k2)})
+    return entries
+
+
+def check_deadline_on_card(server, tag: str) -> None:
+    """x-request-timeout on the card: 0 is a 504 before admission; a
+    budget the request outlasts is a 504, and its slot and blocks come
+    back."""
+    engine = server.engine
+
+    def post(budget: str, max_tokens: int):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/v1/completions",
+            data=json.dumps({"prompt": "deadline drill", "max_tokens": max_tokens,
+                             "ignore_eos": True, "temperature": 0}).encode(),
+            headers={"content-type": "application/json", "x-request-timeout": budget})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, r.headers.get("x-removal-reason")
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers.get("x-removal-reason")
+
+    free0 = engine.allocator.reusable_blocks
+    t0 = time.monotonic()
+    zero = post("0", 4)
+    expired = post("0.3", 1024)
+    answered_s = time.monotonic() - t0
+    back_s = wait_for(lambda: not any(engine.slots)
+                      and engine.allocator.reusable_blocks == free0, 30,
+                      f"{tag}: the expired request's blocks")
+    log(f"[{tag}] deadline: budget 0 -> {zero}, 0.3 s on 1024 tokens -> {expired} "
+        f"(both answered in {answered_s:.2f}s), slot and {free0} reusable blocks "
+        f"back {back_s:.3f}s later")
+    if zero != (504, "deadline-exceeded") or expired != (504, "deadline-exceeded"):
+        fail(f"{tag}: deadlines not enforced: {zero}, {expired}")
+
+
+def check_orbax_refused(device: str = "cuda") -> None:
+    """An Orbax-shaped directory (the JAX converter's) is refused with a
+    message that names the port's converter."""
+    from llm_d_inference_scheduler_tpu_torch.engine.config import EngineConfig
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.models.configs import TINY
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "model_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(TINY), f)
+        open(os.path.join(d, "_CHECKPOINT_METADATA"), "w").close()
+        try:
+            TorchEngine(EngineConfig(model=d, device=device))
+        except ValueError as e:
+            if "Orbax" not in str(e) or "convert_hf" not in str(e):
+                fail(f"ckpt: an Orbax directory was refused without naming the "
+                     f"port's converter: {e}")
+            log(f"[ckpt] an Orbax directory is refused: {e}")
+            return
+    fail("ckpt: an Orbax directory was served")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1948,6 +2338,14 @@ def main() -> int:
                {**k2, "path": f"{MOE_SERVED} embeddings",
                 "launches": moe_embed["launches"][grouped_moe.KERNEL],
                 "launches_by_path": moe_embed["paths"]}]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. converted HF checkpoints: written from a seed, converted by the
+    # port's CLI, served from disk with batched prefill
+    check_orbax_refused()
+    for family in HF_CONFIGS:
+        entries += asyncio.run(serve_checkpoint(family, card, k1, k2))
     log(f"[done] launches on the main paths: llama3-8b serve {dense_launches}, "
         f"llama3-8b P/D decode {pd_launches}, llama3-8b E/P/D decode {epd_launches}, "
         f"{MOE_SERVED} serve {moe_launches} (grouped_moe_ffn by path {moe_paths}), "

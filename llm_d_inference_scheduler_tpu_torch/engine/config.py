@@ -13,6 +13,13 @@ from ..models.configs import ModelConfig, get_config
 class EngineConfig:
     model: str = "tiny"           # registry name or a dir with model_config.json
     served_model_name: str | None = None
+    # A converted directory (models/convert_hf.py) whose model.safetensors
+    # the engine loads; empty = the model directory's own weights when
+    # ``model`` is one, else random weights drawn from ``seed``.
+    checkpoint_path: str = ""
+    # "byte", or an HF fast tokenizer: "hf:<dir>", a directory or a
+    # tokenizer.json path (needs the ``tokenizers`` package).
+    tokenizer: str = "byte"
     max_batch: int = 8            # decode batch slots
     max_model_len: int = 2048
     hbm_kv_blocks: int = 0        # 0 = derive from max_batch * max_model_len
@@ -30,6 +37,12 @@ class EngineConfig:
     # models: the counterpart of the JAX engine's ``pallas_moe``. Off by
     # default, as there: the dense-over-experts FFN serves.
     grouped_moe: bool = False
+    # Batched prefill: up to this many same-bucket plain prompts admitted
+    # together prefill in one [N, S] forward (S = the group's longest
+    # prompt; no padding rows). Prompts with a prefix-cache hit, multimodal
+    # embeddings, a cache probe, a remote-decode export or a prompt longer
+    # than the prefill_chunk window take the single path. 1 = off.
+    prefill_batch: int = 1
     # Incremental prefill: when > 0, a prompt whose un-cached suffix exceeds
     # this many tokens prefills in windows of this size (rounded up to a KV
     # block multiple), one window per engine step between decode chunks.

@@ -57,9 +57,16 @@ single-device serving:
   trash block; a failure stops the engine (``failure``), it never serves
   without a kernel.
 
+- Batched prefill (``prefill_batch``): same-bucket plain prompts admitted
+  together prefill in one [N, S] forward, grouped by the JAX engine's rules
+  (``_flush_admissions``).
+- Weights: passed in, drawn from the seed, or loaded from a converted
+  directory (``engine/checkpoint.py``) named by ``model`` or
+  ``checkpoint_path``.
+
 Not in this slice (the JAX engine has them): the device-to-device transfer
 server and the sharded/multi-host KV wires, multi-host,
-tensor/expert/pipeline meshes, batched prefill.
+tensor/expert/pipeline meshes.
 """
 
 from __future__ import annotations
@@ -86,7 +93,7 @@ from ..ops import _build, grouped_moe, paged_attention
 from ..ops.moe import check_tileable
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.hashing import chain_block_hashes
-from . import kv_wire
+from . import checkpoint, kv_wire
 from .blocks import BlockAllocator, PrefixCachingAllocator
 from .config import EngineConfig
 from .kv_events import KvEventPublisher, zmq_available
@@ -149,19 +156,23 @@ class TorchEngine:
             # A geometry the kernel cannot tile fails here, not mid-serve.
             check_tileable(self.mcfg.d_model, self.mcfg.d_ff)
             self.mcfg = dataclasses.replace(self.mcfg, moe_impl="grouped")
-        if params is None and os.path.isdir(cfg.model):
-            # The JAX engine restores such a directory's weights (Orbax,
-            # which needs JAX); random weights would answer as if loaded.
-            raise ValueError(
-                f"model {cfg.model!r} is a checkpoint directory: the port "
-                "loads no checkpoint yet, so the caller must pass params")
+        if (not cfg.checkpoint_path and params is None
+                and os.path.isfile(os.path.join(cfg.model, "model_config.json"))):
+            # A converted directory (models/convert_hf.py): its weights are
+            # the checkpoint. One the port cannot read (Orbax, no weights)
+            # is refused by the load below, never served with random weights.
+            cfg.checkpoint_path = cfg.model
         self.device = resolve_device(cfg.device)
+        # Before any weight is read: a tokenizer that cannot load fails fast.
+        self.tokenizer = get_tokenizer(cfg.tokenizer, self.mcfg.vocab_size)
         # Passed-in params fix the dtype unless the config names one.
         self.dtype = torch_dtype(
             cfg.dtype or (params["embed"].dtype if params is not None
                           else self.mcfg.dtype))
+        if params is None and cfg.checkpoint_path:
+            params = checkpoint.load_params(cfg.checkpoint_path, self.mcfg,
+                                            self.device, self.dtype)
         self.engine_id = f"torch-{uuid.uuid4().hex[:8]}"
-        self.tokenizer = get_tokenizer("byte", self.mcfg.vocab_size)
         self.model_name = cfg.model_name
 
         block = self.mcfg.kv_block_size
@@ -366,6 +377,16 @@ class TorchEngine:
     def _emit_to(self, out, loop, ev: TokenEvent):
         loop.call_soon_threadsafe(out.put_nowait, ev)
 
+    def _abort_to(self, out, loop, req: EngineRequest, prompt_tokens: int) -> None:
+        self._emit_to(out, loop, TokenEvent(
+            request_id=req.request_id, token_id=None,
+            finish_reason=FinishReason.ABORT, prompt_tokens=prompt_tokens))
+
+    def _free_blocks(self, blocks: list[int]) -> None:
+        with self._cond:
+            self.allocator.free(blocks)
+            self.telemetry.observe_allocator(self.allocator)
+
     def _run(self):
         if self.kv_events is not None:
             # The PUB socket lives on the thread that publishes.
@@ -405,8 +426,9 @@ class TorchEngine:
     def _warmup(self):
         """Build every CUDA kernel the model's paths launch (K1; K2 with the
         grouped MoE FFN), then run each serving path once with all writes
-        on the trash block 0: a 16-token prefill; with ``prefill_chunk``,
-        one window and one prefix continuation; one decode chunk at every
+        on the trash block 0: a 16-token prefill; with ``prefill_batch``, a
+        batched one; with ``prefill_chunk``, one window and one prefix
+        continuation; one decode chunk at every
         batch bucket ``_batch_bucket`` can produce; with role ``encode``,
         the vision tower. Greedy lanes draw nothing from the sampling
         generator, so the outputs do not depend on the warm-up."""
@@ -427,6 +449,10 @@ class TorchEngine:
             if n > 0:
                 self._run_prefill(_DUMMY_REQ, [0] * n, [0] * n, prefix,
                                   [0] * (prefix // block), row)
+        K, n = self.cfg.prefill_batch, windows[0][0]
+        if K > 1 and n > 0:
+            self._prefill_rows([_DUMMY_REQ] * K, [[0] * n] * K,
+                               np.zeros((K, self.max_blocks_per_seq), np.int32))
         steps, W, b = self.decode_steps, self.max_blocks_per_seq, 1
         while True:
             B = self._batch_bucket(b)
@@ -480,10 +506,7 @@ class TorchEngine:
         self._fail_embeds("engine loop failure")
         drained += [(pi.req, pi.out, pi.loop) for pi in imports]
         for req, out, loop in drained:
-            self._emit_to(out, loop, TokenEvent(
-                request_id=req.request_id, token_id=None,
-                finish_reason=FinishReason.ABORT,
-                prompt_tokens=len(req.prompt_token_ids)))
+            self._abort_to(out, loop, req, len(req.prompt_token_ids))
 
     def _fail_embeds(self, why: str) -> None:
         with self._cond:
@@ -548,10 +571,7 @@ class TorchEngine:
             keep = []
             for req, out, loop in self._waiting:
                 if req.request_id in ids:
-                    self._emit_to(out, loop, TokenEvent(
-                        request_id=req.request_id, token_id=None,
-                        finish_reason=FinishReason.ABORT,
-                        prompt_tokens=len(req.prompt_token_ids)))
+                    self._abort_to(out, loop, req, len(req.prompt_token_ids))
                 else:
                     keep.append((req, out, loop))
             self._waiting = keep
@@ -597,10 +617,7 @@ class TorchEngine:
                     self._waiting.pop(0)
                     self.telemetry.waiting.set(len(self._waiting))
                     self._record_queue_wait(req.request_id)
-                    self._emit_to(out, loop, TokenEvent(
-                        request_id=req.request_id, token_id=None,
-                        finish_reason=FinishReason.ABORT,
-                        prompt_tokens=len(req.prompt_token_ids)))
+                    self._abort_to(out, loop, req, len(req.prompt_token_ids))
                     continue
                 if (req.kv_transfer_params or {}).get("remote_host") is not None:
                     # Pull off-thread; the KV comes back via _import_ready.
@@ -617,34 +634,163 @@ class TorchEngine:
                 self.telemetry.waiting.set(len(self._waiting))
                 self._record_queue_wait(req.request_id)
             group.append((i, req, out, loop, need))
-        for n, (i, req, out, loop, need) in enumerate(group):
-            try:
-                self._prefill_into_slot(i, req, out, loop, need)
-            except Exception:
-                # Entries not yet dispatched are off the queue already:
-                # answer them instead of leaving their clients waiting.
-                for _, r, o, lp, _ in group[n + 1:]:
-                    self._emit_to(o, lp, TokenEvent(
-                        request_id=r.request_id, token_id=None,
-                        finish_reason=FinishReason.ABORT,
-                        prompt_tokens=len(r.prompt_token_ids)))
-                raise
+        self._flush_admissions(group)
 
-    # ---- prefill -------------------------------------------------------
+    # ---- batched prefill -------------------------------------------------
 
-    def _prefill_into_slot(self, idx, req, out, loop, need: int):
-        block = self.mcfg.kv_block_size
+    def _bucket(self, n: int) -> int:
+        """The JAX engine's prefill bucket: a power of two from 16, capped at
+        ``max_model_len``. Batched prefill groups prompts by it."""
+        b = 16
+        while b < n:
+            b *= 2
+        return min(b, self.cfg.max_model_len)
+
+    def _flush_admissions(self, group):
+        """Dispatch the collected admissions, with the JAX engine's grouping:
+        same-bucket plain prompts batch, up to ``prefill_batch`` at a time,
+        into one [N, S] prefill; multimodal prompts, cache probes,
+        remote-decode exports, prompts longer than the incremental window,
+        prefix-cache hits, in-group duplicate chains and groups that shrink
+        to one take the single path. Batches go first, so the single path's
+        prefix matches see the hashes they committed. A failed dispatch
+        answers every entry not dispatched yet with ABORT (they are off the
+        queue already) and frees its blocks."""
+        K = max(self.cfg.prefill_batch, 1)
+        win = self._prefill_window()
+        singles: list[tuple] = []    # (i, req, out, loop, need, pre | None)
+        by_bucket: dict[int, list[tuple]] = {}
+        for i, req, out, loop, need in group:
+            if (K <= 1 or req.mm_embeds is not None
+                    or req.cache_hit_threshold is not None
+                    or (req.kv_transfer_params or {}).get("do_remote_decode")):
+                singles.append((i, req, out, loop, need, None))
+                continue
+            pre = self._prompt_and_hashes(req)
+            if win and len(pre[0]) > win:
+                singles.append((i, req, out, loop, need, pre))
+                continue
+            by_bucket.setdefault(self._bucket(len(pre[0])), []).append(
+                (i, req, out, loop, need, pre))
+        batches: list[list[tuple]] = []  # entries + their blocks
+        seen_chains: set[tuple] = set()
+        for entries in by_bucket.values():
+            while entries:
+                chunk, entries = entries[:K], entries[K:]
+                if len(chunk) == 1:
+                    singles.append(chunk[0])
+                    continue
+                prepared = []
+                for entry in chunk:
+                    _, req, _, _, need, (prompt, hashes, caching) = entry
+                    blocks = None
+                    if not (hashes and tuple(hashes) in seen_chains):
+                        blocks = self._try_prepare_batch_entry(need, prompt, hashes,
+                                                               caching)
+                    if blocks is None:  # a duplicate or a prefix hit
+                        singles.append(entry)
+                        continue
+                    if hashes:
+                        seen_chains.add(tuple(hashes))
+                    prepared.append((*entry, blocks))
+                if len(prepared) == 1:
+                    # The group shrank to one: the single path allocates
+                    # its own blocks (fewer after a prefix match).
+                    *entry, blocks = prepared[0]
+                    self._free_blocks(blocks)
+                    singles.append(tuple(entry))
+                elif prepared:
+                    batches.append(prepared)
+        n_started = 0
+        try:
+            for prepared in batches:
+                n_started += 1
+                self._run_batched_prefill(prepared)
+            while singles:
+                self._prefill_into_slot(*singles.pop(0))
+        except Exception:
+            # The failing dispatch answered its own entries.
+            for prepared in batches[n_started:]:
+                for _, req, out, loop, _, pre, blocks in prepared:
+                    self._free_blocks(blocks)
+                    self._abort_to(out, loop, req, len(pre[0]))
+            for _, req, out, loop, _, _ in singles:
+                self._abort_to(out, loop, req, len(req.prompt_token_ids))
+            raise
+
+    def _prompt_and_hashes(self, req: EngineRequest):
+        """(truncated prompt, chain hashes, caching on) of a request, shared
+        by the single and batched paths. A multimodal prompt is not
+        content-addressable by its token ids (the same placeholders carry
+        other images): no prefix cache and no KV events for it."""
         prompt = req.prompt_token_ids[: self.cfg.max_model_len - 1]
         if len(prompt) < len(req.prompt_token_ids):
             log.warning("request %s: prompt truncated %d -> %d tokens",
                         req.request_id, len(req.prompt_token_ids), len(prompt))
         mm = req.mm_embeds is not None
-        # A multimodal prompt is not content-addressable by its token ids
-        # (the same placeholders carry other images): no prefix cache, no
-        # KV events for it.
         caching = isinstance(self.allocator, PrefixCachingAllocator) and not mm
-        hashes = (chain_block_hashes(self.model_name, prompt, "", block)
+        hashes = (chain_block_hashes(self.model_name, prompt, "", self.mcfg.kv_block_size)
                   if caching or (self.kv_events is not None and not mm) else [])
+        return prompt, hashes, caching
+
+    def _try_prepare_batch_entry(self, need: int, prompt, hashes, caching: bool):
+        """The blocks of a batchable prompt, or None when it has a prefix-cache
+        hit (the single path prefills only its suffix)."""
+        with self._cond:
+            if caching and hashes:
+                max_match = (len(prompt) - 1) // self.mcfg.kv_block_size
+                if self.allocator.match_prefix(hashes)[:max_match]:
+                    return None
+            blocks = self.allocator.alloc(need)
+            evicted = list(getattr(self.allocator, "last_evicted_hashes", []))
+            self.telemetry.observe_allocator(self.allocator)
+        self._publish("removed", evicted)
+        return blocks
+
+    def _run_batched_prefill(self, entries: list[tuple]):
+        """One [N, S] prefill of N plain prompts (``_prefill_rows``); each
+        slot lands pending with its row of the sampled first tokens. On a
+        failure every entry not slotted yet is freed and answered ABORT."""
+        block = self.mcfg.kv_block_size
+        t0 = time.monotonic()
+        try:
+            rows = np.zeros((len(entries), self.max_blocks_per_seq), np.int32)
+            for k, e in enumerate(entries):
+                rows[k, : len(e[6])] = e[6]
+            toks = self._prefill_rows([e[1] for e in entries],
+                                      [e[5][0] for e in entries], rows)
+            self.telemetry.prefill_step.observe(time.monotonic() - t0)
+            for k, (i, req, out, loop, _, pre, blocks) in enumerate(entries):
+                prompt, hashes, caching = pre
+                self.telemetry.prompt_tokens.inc(len(prompt))
+                self.kv_hits.note(req.request_id, 0, len(prompt))
+                slot = _Slot(req=req, out=out, loop=loop, blocks=blocks,
+                             position=len(prompt), generated=[], last_token=-1,
+                             pending_tok=toks[k], prompt_len=len(prompt))
+                n_complete = len(prompt) // block
+                if caching:
+                    with self._cond:
+                        self.allocator.commit_hashes(blocks[:n_complete],
+                                                     hashes[:n_complete])
+                slot.block_hashes = hashes[:n_complete]
+                self._publish("stored", slot.block_hashes)
+                self.slots[i] = slot
+        except Exception:
+            for i, req, out, loop, _, pre, blocks in entries:
+                s = self.slots[i]
+                if s is None or s.req is not req:
+                    self._free_blocks(blocks)
+                    self._abort_to(out, loop, req, len(pre[0]))
+            raise
+        finally:
+            self.telemetry.running.set(sum(s is not None for s in self.slots))
+
+    # ---- prefill -------------------------------------------------------
+
+    def _prefill_into_slot(self, idx, req, out, loop, need: int, precomputed=None):
+        block = self.mcfg.kv_block_size
+        prompt, hashes, caching = precomputed or self._prompt_and_hashes(req)
+        mm = req.mm_embeds is not None
 
         # Automatic prefix caching: reuse the longest cached run of complete
         # prompt blocks, keeping >= 1 suffix token so logits can be computed.
@@ -702,12 +848,8 @@ class TorchEngine:
             tok_dev = self._run_prefill(req, prompt, suffix, cached_tokens,
                                         matched_bids, row)
         except Exception:
-            with self._cond:
-                self.allocator.free(blocks)
-                self.telemetry.observe_allocator(self.allocator)
-            self._emit_to(out, loop, TokenEvent(
-                request_id=req.request_id, token_id=None,
-                finish_reason=FinishReason.ABORT, prompt_tokens=len(prompt)))
+            self._free_blocks(blocks)
+            self._abort_to(out, loop, req, len(prompt))
             raise
         self.telemetry.prefill_step.observe(time.monotonic() - t0)
         self.telemetry.prompt_tokens.inc(len(suffix))
@@ -737,27 +879,41 @@ class TorchEngine:
         With ``matched_bids`` the suffix continues from the KV of those
         (cached or already written) blocks, else the whole prompt runs, with
         the request's multimodal embeddings spliced in."""
-        knobs = SamplingKnobs.from_numpy(*self._sample_np([req]), self.device)
-        row_t = self._to_dev(row)
         if matched_bids:
             logits, _, _ = llama.prefill_with_prefix(
                 self.params, self.mcfg,
                 self._to_dev(np.asarray([suffix], np.int32)),
                 self._to_dev(np.asarray([len(suffix)], np.int32)),
                 self._to_dev(np.asarray([cached_tokens], np.int32)),
-                self.k_pages, self.v_pages, row_t,
+                self.k_pages, self.v_pages, self._to_dev(row),
                 self._to_dev(np.asarray([matched_bids], np.int32)))
-        else:
-            hidden, (k_new, v_new) = llama.forward(
-                self.params, self.mcfg,
-                self._to_dev(np.asarray([prompt], np.int32)),
-                want_kv=True, want_hidden=True, **self._mm_args(req))
-            llama.write_prefill_kv(self.k_pages, self.v_pages, k_new, v_new,
-                                   row_t, self._to_dev(np.asarray([len(prompt)], np.int32)))
-            # Only the last row needs the LM head (the hidden state is the
-            # forward's f32 copy of a bf16/f32 value: the cast back is exact).
-            last = hidden[:, -1].to(self.dtype)
-            logits = (last @ self.params["lm_head"]).float()
+            knobs = SamplingKnobs.from_numpy(*self._sample_np([req]), self.device)
+            return sample_tokens(logits, self._sample_gen, knobs)
+        return self._prefill_rows([req], [prompt], row, **self._mm_args(req))[0]
+
+    def _prefill_rows(self, reqs, prompts, rows: np.ndarray, **mm) -> torch.Tensor:
+        """Whole-prompt prefill of N prompts in one [N, S] forward, S the
+        longest (eager PyTorch has no compile cache to bound, so no padding
+        rows and no bucket padding): each row's KV goes to its block-table
+        row ``rows[k]`` (padding positions to the trash block 0) and its
+        first token is sampled at its last real position. Returns the
+        tokens [N] on the device."""
+        N, S = len(prompts), max(len(p) for p in prompts)
+        tokens = np.zeros((N, S), np.int32)
+        for k, p in enumerate(prompts):
+            tokens[k, : len(p)] = p
+        lens = self._to_dev(np.asarray([len(p) for p in prompts], np.int32))
+        knobs = SamplingKnobs.from_numpy(*self._sample_np(reqs), self.device)
+        hidden, (k_new, v_new) = llama.forward(self.params, self.mcfg,
+                                               self._to_dev(tokens), want_kv=True,
+                                               want_hidden=True, **mm)
+        llama.write_prefill_kv(self.k_pages, self.v_pages, k_new, v_new,
+                               self._to_dev(rows), lens)
+        # Only each row's last real position needs the LM head (the hidden
+        # state is the forward's f32 copy of a bf16/f32 value: the cast back
+        # is exact).
+        last = hidden[torch.arange(N, device=self.device), (lens - 1).long()]
+        logits = (last.to(self.dtype) @ self.params["lm_head"]).float()
         return sample_tokens(logits, self._sample_gen, knobs)
 
     def _mm_args(self, req: EngineRequest) -> dict[str, torch.Tensor]:
@@ -832,12 +988,8 @@ class TorchEngine:
             except Exception:
                 self.slots[idx] = None
                 self._drop_partial_export(req.request_id)
-                with self._cond:
-                    self.allocator.free(s.blocks)
-                    self.telemetry.observe_allocator(self.allocator)
-                self._emit_to(s.out, s.loop, TokenEvent(
-                    request_id=req.request_id, token_id=None,
-                    finish_reason=FinishReason.ABORT, prompt_tokens=s.prompt_len))
+                self._free_blocks(s.blocks)
+                self._abort_to(s.out, s.loop, req, s.prompt_len)
                 self.telemetry.running.set(sum(x is not None for x in self.slots))
                 raise
             self.telemetry.prefill_step.observe(time.monotonic() - t0)
@@ -1106,9 +1258,7 @@ class TorchEngine:
                 except Exception as e:
                     # Malformed payload or geometry mismatch: reclaim the
                     # allocation and prefill locally.
-                    with self._cond:
-                        self.allocator.free(blocks)
-                        self.telemetry.observe_allocator(self.allocator)
+                    self._free_blocks(blocks)
                     pi.error = f"import rejected: {e}"
             log.warning("kv import for %s failed (%s); local prefill fallback",
                         pi.req.request_id, pi.error)

@@ -70,7 +70,7 @@ log = logging.getLogger("engine.torch.server")
 _REASONS = {200: "OK", 202: "Accepted", 204: "No Content", 400: "Bad Request",
             404: "Not Found", 405: "Method Not Allowed", 413: "Payload Too Large",
             500: "Internal Server Error", 501: "Not Implemented",
-            503: "Service Unavailable"}
+            503: "Service Unavailable", 504: "Gateway Timeout"}
 MAX_BODY = 64 << 20
 
 
@@ -327,7 +327,10 @@ class EngineServer:
                 known = any(p == route for _, p in self._routes)
                 raise HTTPError(405 if known else 404,
                                 f"{method} {path} not served")
-            await handler(conn, body)
+            if method == "POST" and path in self.GEN_PATHS:
+                await self._within_deadline(handler, conn, body)
+            else:
+                await handler(conn, body)
         except HTTPError as e:
             await conn.send(e.status, f"{e.status}: {e.text}".encode(),
                             "text/plain; charset=utf-8")
@@ -339,6 +342,55 @@ class EngineServer:
             await conn.send(500, b"500: internal server error",
                             "text/plain; charset=utf-8")
         return conn.keep_alive
+
+    # ---- deadlines ------------------------------------------------------
+
+    GEN_PATHS = ("/v1/completions", "/v1/chat/completions", "/v1/responses")
+
+    async def _within_deadline(self, handler, conn: _Conn, body: bytes) -> None:
+        """The JAX server's deadline enforcement on the generate routes: an
+        ``x-request-timeout`` header (remaining seconds, stamped by the
+        gateway and the sidecar) bounds the serve. A budget that does not
+        parse is ignored; one <= 0 answers 504 before anything is admitted;
+        a non-streaming request past its budget is cancelled (its engine
+        request aborted, so the slot and blocks come back) and answered
+        504; a stream's watchdog closes the connection, the only honest
+        signal once the status line is on the wire, and cancels the
+        handler, which aborts the engine request."""
+        try:
+            remaining = float(conn.headers["x-request-timeout"])
+        except (KeyError, ValueError):
+            return await handler(conn, body)
+        if remaining <= 0:
+            return await self._deadline_exceeded(conn)
+        try:
+            is_stream = bool(json.loads(body).get("stream"))
+        except Exception:
+            is_stream = False
+        if is_stream:
+            task = asyncio.current_task()
+
+            def expire():
+                conn.keep_alive = False
+                conn.writer.close()
+                task.cancel()
+
+            watchdog = asyncio.get_running_loop().call_later(remaining, expire)
+            try:
+                return await handler(conn, body)
+            finally:
+                watchdog.cancel()
+        try:
+            await asyncio.wait_for(handler(conn, body), timeout=remaining)
+        except asyncio.TimeoutError:
+            # wait_for cancelled the handler, whose CancelledError path
+            # aborted the engine request.
+            await self._deadline_exceeded(conn)
+
+    @staticmethod
+    async def _deadline_exceeded(conn: _Conn) -> None:
+        await conn.send_json({"error": "deadline exceeded"}, status=504,
+                             headers={"x-removal-reason": "deadline-exceeded"})
 
     @staticmethod
     def _json_body(raw: bytes) -> dict[str, Any]:
@@ -1129,7 +1181,11 @@ def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
     import argparse
 
     p = argparse.ArgumentParser(description="PyTorch engine server (OpenAI surface)")
-    p.add_argument("--model", default="tiny")
+    p.add_argument("--model", default="tiny",
+                   help="registry name, or a directory the port's converter "
+                        "wrote (model_config.json + model.safetensors)")
+    p.add_argument("--checkpoint", default="",
+                   help="converted directory whose weights to load for --model")
     p.add_argument("--role", default="both",
                    choices=("both", "prefill", "decode", "encode"),
                    help="P/D role reported on /health")
@@ -1143,6 +1199,8 @@ def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
     p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--decode-chunk", type=int, default=8,
                    help="decode steps fused per device dispatch")
+    p.add_argument("--prefill-batch", type=int, default=1,
+                   help="same-bucket prompts fused per prefill dispatch")
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help="incremental prefill window in tokens (0 = whole prompt)")
     p.add_argument("--kv-events-port", type=int, default=-1,
@@ -1156,9 +1214,11 @@ def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
     p.add_argument("--drain-timeout", type=float, default=30.0)
     args = p.parse_args(argv)
     cfg = EngineConfig(model=args.model, served_model_name=args.served_model_name,
-                       port=args.port, host=args.host, max_batch=args.max_batch,
+                       checkpoint_path=args.checkpoint, port=args.port,
+                       host=args.host, max_batch=args.max_batch,
                        max_model_len=args.max_model_len,
                        decode_chunk=args.decode_chunk,
+                       prefill_batch=args.prefill_batch,
                        prefill_chunk=args.prefill_chunk,
                        kv_events_port=args.kv_events_port, seed=args.seed,
                        role=args.role, warmup=args.warmup,

@@ -82,6 +82,41 @@ def init_params(cfg: ModelConfig, device: str | torch.device = "cuda",
             "lm_head": w((D, V), D)}
 
 
+def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The shape of every parameter ``init_params`` draws, flattened to
+    ``embed``, ``layers.wq``, ... (the names of a converted checkpoint)."""
+    L, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    Hq, Hkv, Dh, E = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_experts
+    experts = (E,) if E else ()
+    shapes = {"embed": (V, D), "layers.wq": (L, D, Hq * Dh),
+              "layers.wk": (L, D, Hkv * Dh), "layers.wv": (L, D, Hkv * Dh),
+              "layers.wo": (L, Hq * Dh, D), "layers.w1": (L, *experts, D, F_),
+              "layers.w2": (L, *experts, F_, D), "layers.w3": (L, *experts, D, F_),
+              "layers.ln_attn": (L, D), "layers.ln_mlp": (L, D)}
+    if cfg.qk_norm:
+        shapes |= {"layers.q_norm": (L, Dh), "layers.k_norm": (L, Dh)}
+    if E:
+        shapes["layers.router"] = (L, D, E)
+    return shapes | {"final_norm": (D,), "lm_head": (D, V)}
+
+
+def flat_params(params: Params) -> dict[str, torch.Tensor]:
+    """``params`` under the flat names of ``param_shapes``."""
+    flat = {k: v for k, v in params.items() if k != "layers"}
+    return flat | {f"layers.{k}": v for k, v in params["layers"].items()}
+
+
+def nested_params(flat: dict[str, torch.Tensor]) -> Params:
+    """The inverse of ``flat_params``."""
+    params: Params = {"layers": {}}
+    for name, t in flat.items():
+        if name.startswith("layers."):
+            params["layers"][name[len("layers."):]] = t
+        else:
+            params[name] = t
+    return params
+
+
 def layer_params(params: Params) -> list[dict[str, torch.Tensor]]:
     """Per-layer views of the stacked layer weights (no copies)."""
     stacked = params["layers"]

@@ -12,11 +12,17 @@ and warm-up, held against the JAX package on the CPU.
   ``tests/test_e2e_disagg.py::test_shared_storage_connector``) gives the
   JAX pair's tokens;
 - ``--warmup`` holds ``/health`` at 503 ``warming`` until warm and changes
-  no greedy token; a failed warm-up stops the engine and the server.
+  no greedy token; a failed warm-up stops the engine and the server;
+- ``x-request-timeout`` on the generate routes, against the JAX server on
+  the same request: a budget <= 0 answers 504 with ``x-removal-reason:
+  deadline-exceeded`` before admission, an expired non-streaming budget
+  answers 504 and aborts the engine request (its blocks come back), a
+  stream's watchdog closes the connection before ``[DONE]``.
 """
 
 import asyncio
 import dataclasses
+import http.client
 import json
 import socket
 import threading
@@ -354,3 +360,126 @@ def test_failed_warmup_stops_engine_and_server(loop, monkeypatch):
         _run(loop, srv.stop(), 60)
     with pytest.raises(RuntimeError, match="warm-up failed"):
         asyncio.run(asyncio.wait_for(server_mod.run_server(cfg), 30))
+
+
+# ---- deadlines ----------------------------------------------------------------------
+
+GEN_BODIES = {
+    "/v1/completions": {"prompt": "a deadline drill"},
+    "/v1/chat/completions": {"messages": [{"role": "user", "content": "a deadline drill"}]},
+    "/v1/responses": {"input": "a deadline drill"},
+}
+
+
+def _raw(port, path, body, headers, timeout=60):
+    """(status, lower-cased headers, body bytes) of one POST; for an SSE
+    body read until the server closes, with ``IncompleteRead`` taken as
+    the close (the watchdog's cut of a chunked body)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, json.dumps(body).encode(),
+                     {"content-type": "application/json", **headers})
+        r = conn.getresponse()
+        try:
+            data = r.read()
+        except http.client.IncompleteRead as e:
+            data = e.partial
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, data
+    finally:
+        conn.close()
+
+
+@pytest.fixture(scope="module")
+def deadline_pair(loop):
+    """A port server whose decode chunks are slowed to ~50 ms each and a
+    JAX sim server at 20 ms a token: 200 tokens outlast every budget below
+    on both."""
+    port_srv = EngineServer(EngineConfig(model="tiny", device="cpu", port=0,
+                                         kv_events_port=0, max_model_len=256))
+    chunk = port_srv.engine._decode_chunk
+
+    def slow(*a, **kw):
+        time.sleep(0.05)
+        return chunk(*a, **kw)
+
+    port_srv.engine._decode_chunk = slow
+    jax_srv = JaxEngineServer(JaxEngineConfig(backend="sim", model="tiny",
+                                              port=_free_port(),
+                                              sim_decode_ms_per_token=20.0))
+    for s in (port_srv, jax_srv):
+        _run(loop, s.start())
+    yield port_srv, jax_srv
+    for s in (port_srv, jax_srv):
+        _run(loop, s.stop(), 60)
+
+
+def _blocks_back(engine, timeout=10.0):
+    """Wait until no slot is live and every usable block is reusable."""
+    deadline = time.monotonic() + timeout
+    while True:
+        free = getattr(engine.allocator, "reusable_blocks", engine.allocator.free_blocks)
+        if free == engine.n_blocks - 1 and not any(engine.slots):
+            return
+        assert time.monotonic() < deadline, (free, engine.n_blocks)
+        time.sleep(0.01)
+
+
+def _aborts(engine) -> str:
+    return next((line for line in engine.telemetry.render().decode().splitlines()
+                 if 'finished_reason="abort"' in line and "_total" in line), "")
+
+
+@pytest.mark.parametrize("path", sorted(GEN_BODIES))
+def test_zero_budget_is_504_before_admission_as_on_the_jax_server(deadline_pair, path):
+    port_srv, jax_srv = deadline_pair
+    body = {**GEN_BODIES[path], "max_tokens": 4, "temperature": 0}
+    prompts_before = _prompt_tokens(port_srv)
+    for budget in ("0", "-1.5"):
+        got = [_raw(_port_of(s), path, body, {"x-request-timeout": budget})
+               for s in (port_srv, jax_srv)]
+        for status, headers, data in got:
+            assert status == 504, (path, budget, status, data)
+            assert headers["x-removal-reason"] == "deadline-exceeded"
+            assert json.loads(data) == {"error": "deadline exceeded"}
+    assert _prompt_tokens(port_srv) == prompts_before  # nothing was admitted
+    # A budget that does not parse is ignored, on both servers.
+    for s in (port_srv, jax_srv):
+        assert _raw(_port_of(s), path, body, {"x-request-timeout": "soon"})[0] == 200
+
+
+def test_expired_budget_is_504_and_aborts_the_engine_request(deadline_pair):
+    port_srv, jax_srv = deadline_pair
+    body = {"prompt": "a long answer, please", "max_tokens": 200,
+            "ignore_eos": True, "temperature": 0}
+    aborts = _aborts(port_srv.engine)
+    for s in (port_srv, jax_srv):
+        t0 = time.monotonic()
+        status, headers, data = _raw(_port_of(s), "/v1/completions", body,
+                                     {"x-request-timeout": "0.3"})
+        assert (status, headers["x-removal-reason"]) == (504, "deadline-exceeded")
+        assert json.loads(data) == {"error": "deadline exceeded"}
+        assert time.monotonic() - t0 < 1.0  # answered at the budget, not the end
+    _blocks_back(port_srv.engine)
+    assert _aborts(port_srv.engine) != aborts  # the engine counted the abort
+    # A budget that suffices changes nothing.
+    status, _, data = _raw(port_srv.port, "/v1/completions",
+                           {**body, "max_tokens": 4}, {"x-request-timeout": "30"})
+    assert status == 200 and json.loads(data)["usage"]["completion_tokens"] == 4
+
+
+def test_stream_watchdog_closes_the_connection(deadline_pair):
+    port_srv, jax_srv = deadline_pair
+    body = {"prompt": "a long streamed answer", "max_tokens": 200,
+            "ignore_eos": True, "temperature": 0, "stream": True}
+    for s in (port_srv, jax_srv):
+        t0 = time.monotonic()
+        status, headers, data = _raw(_port_of(s), "/v1/completions", body,
+                                     {"x-request-timeout": "0.4"})
+        assert status == 200 and headers["content-type"].startswith("text/event-stream")
+        assert b"data: " in data and b"[DONE]" not in data  # cut mid-stream
+        assert time.monotonic() - t0 < 2.0
+    _blocks_back(port_srv.engine)
+    # The same stream with room to finish ends with [DONE].
+    status, _, data = _raw(port_srv.port, "/v1/completions", {**body, "max_tokens": 4},
+                           {"x-request-timeout": "30"})
+    assert status == 200 and data.rstrip().endswith(b"data: [DONE]")
