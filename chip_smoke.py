@@ -8,9 +8,10 @@ Phases (any failure exits non-zero):
   2. build     nvcc builds every kernel of the serving paths from csrc/ (K1
                paged decode attention, K2 grouped-expert FFN), in parallel
   3. kernels   K1 (one launch; mma.sync in bf16) against its plain PyTorch
-               version on the card, at llama3-8b shapes (and head_dim 64),
-               bf16 and f32, with times of the kernel, the plain version
-               and a library yardstick
+               version on the card, at llama3-8b shapes (and head_dim 64)
+               and at one tp rank's heads (H/Hkv 16/4, 8/2, 4/1), bf16 and
+               f32, with times of the kernel, the plain version and a
+               library yardstick at the full and at each local shape
   4. decode    one full-width llama3-8b decode_step in bf16 (random weights),
                kernel against plain paged attention; the same on the first
                two layers in f32, with a tight tolerance
@@ -81,13 +82,29 @@ Phases (any failure exits non-zero):
                batched prefill) counted; x-request-timeout answers 504 and
                the slot and blocks come back; prints bytes, convert and
                load-to-ready seconds, and peak host RSS
+  10. tp      llama3-8b at full width and depth with --tp-size 2 on an
+               explicit device list naming the card twice, from the server's
+               parser: phase 5's four requests, greedy tokens equal to a
+               tp=1 engine's on the same weights up to reported near-ties,
+               K1 launched tp x n_layers times per decode step; a P/D
+               handoff from the tp=2 engine into a tp=1 decode engine (the
+               imported pages equal each kv-head shard bitwise, tokens
+               against a tp=1 monolithic engine); decode tok/s and the
+               step's wall time, which are not a TP speed (two shards on
+               one card). Then Mixtral (16 of 32 layers) with --ep-size 2,
+               dense, against a tp=1 dense engine, the same way
+  10b. tls    one https completion against a tp=2 engine served with
+               --cert-path (a certificate from the cryptography package or
+               the openssl CLI), one chaos http503 and a completion after it
 The lines before the last carry the card's name and power limit and a JSON
 object listing each kernel once for every serving path that launches it
 (the P/D decode engine's K1 launches as path "llama3-8b P/D decode", the
 E/P/D decode leg's as "llama3-8b E/P/D decode", K2's
 launches of the Mixtral /v1/embeddings calls as path
 "mixtral-8x7b-16l embeddings", the checkpoint phase's as "ckpt
-llama3-8b-8l serve" and "ckpt mixtral-8x7b-2l serve"), with that path's launch count (K2's entry also by kernel path, and its
+llama3-8b-8l serve" and "ckpt mixtral-8x7b-2l serve", phase 10's as
+"llama3-8b tp2 serve" (timed at one rank's heads, 16/4), "llama3-8b tp2
+P/D decode (tp=1)" and "mixtral-8x7b-16l ep2 serve"), with that path's launch count (K2's entry also by kernel path, and its
 prefill-size times under prefill_*); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -161,6 +178,8 @@ MOE_FFN_BF16_TOL = 3e-2
 # steps: a lane moved off its expert by a fault flips at such a margin.
 MOE_ROUTE_TIE_STEPS = 8
 MODEL = "llama3-8b"
+# llama3-8b's (H, Hkv) on one tp rank at tp = 2, 4 and 8.
+LOCAL_HEADS = [(16, 4), (8, 2), (4, 1)]
 MOE_MODEL = "mixtral-8x7b"
 MOE_LAYERS = 16   # of 32: 93.4 GB in bf16 do not fit in 80 GB; 16 take 47 GB
 MOE_SERVED = "mixtral-8x7b-16l"
@@ -268,10 +287,9 @@ def check_attention(name: str, args: tuple) -> float:
 
 
 def phase_kernels(serve_seq_lens: list[int]) -> dict:
-    from llm_d_inference_scheduler_tpu_torch.ops import paged_attention as pa
-    from llm_d_inference_scheduler_tpu_torch.ops.attention import paged_decode_attention
-    from llm_d_inference_scheduler_tpu_torch.tools.timing import device_ms, kernel_times
-
+    """K1 against its plain version on every case, and timed at the serve
+    shape with the full model's heads and with each LOCAL_HEADS pair;
+    returns K1's kernels-line entry for each (H, Hkv) timed."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -284,6 +302,9 @@ def phase_kernels(serve_seq_lens: list[int]) -> dict:
         # The serving phase's decode batch (a split layout of its own).
         ("serve shape B=4", len(serve_seq_lens), 32, 8, 128, serve_seq_lens),
     ]
+    # One tp rank's heads of llama3-8b (phase 10): H/Hkv at tp = 2, 4, 8.
+    cases += [(f"local H={H} Hkv={Hkv} B=8", 8, H, Hkv, 128,
+               [1, 17, 33, 100, 257, 1000, 2048, 5]) for H, Hkv in LOCAL_HEADS]
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for name, B, H, Hkv, D, sl in cases:
@@ -294,11 +315,30 @@ def phase_kernels(serve_seq_lens: list[int]) -> dict:
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
 
-    # Times at the serving phase's decode shape: the served prompts' lengths
-    # midway through their 32 tokens, one batch bucket of 4. Eight layers'
-    # pages (> the 50 MB L2) rotate as in a decode step, so reads are cold.
+    timing = {(32, 8): None}
+    timing |= {hk: None for hk in LOCAL_HEADS}
+    for H, Hkv in timing:
+        timing[H, Hkv] = time_attention(gen, serve_seq_lens, H, Hkv)
+        worst = max(worst, timing[H, Hkv].pop("max_abs_err"))
+    entry = {"name": "paged_decode_attention", "route": "cuda",
+             "source": "llm_d_inference_scheduler_tpu_torch/csrc/paged_decode_attention.cu",
+             "replaces": "llm_d_inference_scheduler_tpu/ops/pallas_paged_attention.py:139",
+             "launches": None, "max_abs_err": worst}
+    return {hk: {**entry, **t} for hk, t in timing.items()}
+
+
+def time_attention(gen, serve_seq_lens: list[int], H: int, Hkv: int) -> dict:
+    """K1, its plain version and SDPA timed at the serving phase's decode
+    shape with H query and Hkv KV heads (the full model's, or one tp rank's):
+    the served prompts' lengths midway through their 32 tokens, one batch
+    bucket of 4. Eight layers' pages (> the 50 MB L2) rotate as in a decode
+    step, so reads are cold."""
+    from llm_d_inference_scheduler_tpu_torch.ops import paged_attention as pa
+    from llm_d_inference_scheduler_tpu_torch.ops.attention import paged_decode_attention
+    from llm_d_inference_scheduler_tpu_torch.tools.timing import device_ms, kernel_times
+
     L = 8
-    c = make_attention_case(gen, len(serve_seq_lens), 32, 8, 128,
+    c = make_attention_case(gen, len(serve_seq_lens), H, Hkv, 128,
                             serve_seq_lens, torch.bfloat16, layers=L)
     it = {"i": 0}
 
@@ -308,7 +348,7 @@ def phase_kernels(serve_seq_lens: list[int]) -> dict:
         return (c["q"], c["k_pages"][i], c["v_pages"][i], c["block_tables"],
                 c["seq_lens"], c["cur_k"], c["cur_v"])
 
-    worst = max(worst, check_attention("serve shape B=4, timed pages", args()))
+    err = check_attention(f"serve shape B=4 H={H} Hkv={Hkv}, timed pages", args())
     kernel = lambda: pa.paged_decode_attention_cuda(*args())
     plain = lambda: paged_decode_attention(*args())
     k1, k1_wall, prof_ok = device_ms(kernel)
@@ -319,20 +359,18 @@ def phase_kernels(serve_seq_lens: list[int]) -> dict:
     kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
     bound_ms, bound_by = attention_bound_ms(c)
     src = "device time (profiler)" if prof_ok else "CUDA events (profiler saw no device time)"
-    log(f"[kernels] paged_decode_attention timing at seq_lens={serve_seq_lens} "
+    log(f"[kernels] paged_decode_attention timing at H={H} Hkv={Hkv} "
+        f"seq_lens={serve_seq_lens} "
         f"bf16, {src}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
         f"(order kernel, plain, kernel, plain), sdpa over pre-gathered KV "
         f"(gather excluded) {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
         f"by {bound_by}; wall per call by CUDA events, host launch included: "
         f"kernel {k1_wall:.4f}/{k2_wall:.4f} ms, plain {p1_wall:.4f}/{p2_wall:.4f} ms, "
         f"sdpa {lib_wall:.4f} ms")
-    for name, ms in kernel_times(kernel).items():
-        log(f"[kernels]   {ms * 1e3:8.2f} us  {name[:100]}")
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "llm_d_inference_scheduler_tpu_torch/csrc/paged_decode_attention.cu",
-            "replaces": "llm_d_inference_scheduler_tpu/ops/pallas_paged_attention.py:139",
-            "launches": None, "max_abs_err": worst,
-            "ms": kernel_ms, "plain_ms": plain_ms,
+    if (H, Hkv) == (32, 8):
+        for name, ms in kernel_times(kernel).items():
+            log(f"[kernels]   {ms * 1e3:8.2f} us  {name[:100]}")
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
@@ -1732,9 +1770,9 @@ def recorded(fn):
         routes.append((logits.clone(), idx.sort(-1).values))
         return gates, idx
 
-    def rec_ffn(cfg, lp, h):
+    def rec_ffn(cfg, lp, h, *rank):
         inputs.append(h.clone())
-        return ffn(cfg, lp, h)
+        return ffn(cfg, lp, h, *rank)
 
     llama.top_k_gates = moe.top_k_gates = rec_top_k
     llama._ffn = rec_ffn
@@ -1997,7 +2035,7 @@ def run_measured(cmd: list[str], cwd: str) -> tuple[int, str, float]:
 
 
 def excuse_flip(params, mcfg, prompt: list[int], want: list[int], got: list[int],
-                at: int) -> str:
+                at: int, tag: str = "ckpt") -> str:
     """Where the served tokens leave the reference's (position ``at``), both
     tokens' logits must lie within TOKEN_TIE_STEPS bf16 steps of the top
     logit of the reference's model there (a whole-sequence forward over the
@@ -2016,7 +2054,7 @@ def excuse_flip(params, mcfg, prompt: list[int], want: list[int], got: list[int]
             f"below the top logit {top:.4f} by {gaps[0]:.1f} and {gaps[1]:.1f} "
             f"bf16 steps of {step:.4e}")
     if max(gaps) > TOKEN_TIE_STEPS:
-        fail(f"ckpt: the served tokens leave the in-memory engine's at no near-tie: {line}")
+        fail(f"{tag}: the served tokens leave the reference's at no near-tie: {line}")
     return line
 
 
@@ -2227,6 +2265,338 @@ def check_orbax_refused(device: str = "cuda") -> None:
     fail("ckpt: an Orbax directory was served")
 
 
+# ---- phase 10: tensor- and expert-parallel serving --------------------------
+
+TP = 2   # tp ranks of phase 10's llama3-8b engine; EP for its Mixtral engine
+EP = 2
+
+
+def parallel_argv(model: str, device: str, *, tp: int = 1, ep: int = 1,
+                  extra: tuple[str, ...] = ()) -> list[str]:
+    """The server's command line for tp * ep ranks laid on one device (the
+    card, or the CPU in a rehearsal), phase 5's engine settings."""
+    dev = device if ":" in device or device == "cpu" else f"{device}:0"
+    return ["--model", model, "--device", device, "--tp-size", str(tp),
+            "--ep-size", str(ep), "--devices", ",".join([dev] * (tp * ep)),
+            "--port", "0", "--max-batch", "8", "--max-model-len", "2048",
+            "--decode-chunk", "8", "--kv-events-port", "0", *extra]
+
+
+async def serve_counted(server, bodies: list[dict]) -> dict:
+    """A warm-up request, then ``bodies`` at once (request ids r0, r1, ...)
+    with every kernel's launch count set to 0 just before and read just
+    after; returns the tokens, launches, decode steps, decode tok/s and the
+    mean wall time of one decode step (of the engine's fused chunks)."""
+    from llm_d_inference_scheduler_tpu_torch import ops
+
+    engine = server.engine
+    tokens, _ = tap_engine(engine)
+    await asyncio.to_thread(http_post, server.port, {
+        "prompt": "warm up", "max_tokens": 9, "temperature": 0})
+    tel = engine.telemetry
+    before = (engine.decode_steps, tel.decode_step.sum, tel.generation_tokens.value)
+    ops.reset_kernel_launches()
+    t0 = time.monotonic()
+    results = await asyncio.gather(*[asyncio.to_thread(
+        http_post, server.port, {**b, "request_id": f"r{i}"}) for i, b in enumerate(bodies)])
+    wall = time.monotonic() - t0
+    launches = ops.kernel_launches()
+    steps = engine.decode_steps - before[0]
+    dec_s = tel.decode_step.sum - before[1]
+    dec_tokens = tel.generation_tokens.value - before[2] - len(bodies)
+    for i, res in enumerate(results):
+        choice = res["json"]["choices"][0]
+        if not choice["text"] or choice["finish_reason"] not in ("length", "stop"):
+            fail(f"request {i} returned no text or no finish reason: {choice}")
+    return {"tokens": tokens, "launches": launches, "steps": steps, "wall": wall,
+            "tok_s": dec_tokens / dec_s if dec_s else 0.0,
+            "step_ms": dec_s / max(steps, 1) * 1e3}
+
+
+def near_tie_flips(tag: str, ref_params, mcfg, prompts: list[list[int]],
+                   want: dict, got: dict, ids: list[str]) -> list[str]:
+    """Each of ``ids``' tokens against the reference's, a divergence
+    passing only at a near-tie (``excuse_flip``); returns the reports."""
+    flips = []
+    for rid, prompt in zip(ids, prompts):
+        w, g = want.get(rid, []), got.get(rid, [])
+        if not w or len(g) != len(w):
+            fail(f"{tag}: {rid} gave {len(g)} tokens, the reference {len(w)}")
+        at = first_divergence(g, w)
+        if at is not None:
+            flips.append(f"{rid}: " + excuse_flip(ref_params, mcfg, prompt, w, g, at, tag))
+    return flips
+
+
+async def phase_tp(cfg_model, params, card: str, *, model: str = MODEL,
+                   device: str = "cuda") -> tuple[int, int]:
+    """llama3-8b at full width and depth with tp=2 on two ranks of one
+    device, from the server's own parser, against a tp=1 engine on the
+    same weights (the shards are views of them): the four requests of
+    phase 5, greedy tokens equal up to reported near-ties, K1 tp x n_layers
+    times per decode step; then a P/D handoff from the tp=2 engine into a
+    tp=1 decode engine (pages per kv-head shard bitwise, tokens against the
+    tp=1 engine's). Returns K1's launches on the tp=2 serve path and on the
+    P/D decode path."""
+    from llm_d_inference_scheduler_tpu_torch import ops
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.models import llama
+    from llm_d_inference_scheduler_tpu_torch.ops import paged_attention
+
+    tag = f"tp{TP}"
+    bodies = serve_prompts(model)
+    cfg_tp, _ = parse_config(parallel_argv(model, device, tp=TP))
+    cfg_1, _ = parse_config(parallel_argv(model, device))
+    ref = EngineServer(cfg_1, engine=TorchEngine(cfg_1, params=params))
+    await ref.start()
+    try:
+        want = await serve_counted(ref, bodies)
+    finally:
+        await ref.stop()
+    tp_engine = TorchEngine(cfg_tp, params=params)
+    if tp_engine.layout is None or len(tp_engine.k_pages) != TP:
+        fail(f"{tag}: --tp-size {TP} built no sharded engine")
+    srv = EngineServer(cfg_tp, engine=tp_engine)
+    await srv.start()
+    try:
+        got = await serve_counted(srv, bodies)
+        n_layers = cfg_model.n_layers
+        k1 = got["launches"][paged_attention.KERNEL]
+        log(f"[{tag}] {model}, {card}: decode steps {got['steps']}, K1 launches {k1} "
+            f"(tp x n_layers x steps = {TP * n_layers * got['steps']}); tp=1: steps "
+            f"{want['steps']}, K1 {want['launches'][paged_attention.KERNEL]}")
+        if got["steps"] <= 0 or k1 != TP * n_layers * got["steps"]:
+            fail(f"{tag}: K1 did not launch tp x n_layers times per decode step")
+        greedy = [i for i, b in enumerate(bodies) if b["temperature"] == 0]
+        prompts = [ref.engine.tokenizer.encode(bodies[i]["prompt"]) for i in greedy]
+        # The logits themselves: the first prompt's last position through
+        # the tp=1 weights and through the shards, within the coarse gate
+        # phase 4 holds 32 bf16 layers to.
+        ids = torch.tensor([prompts[0]], device=tp_engine.device)
+        with torch.no_grad():
+            one = llama.forward(params, cfg_model, ids)[0][0, -1]
+            two = llama.forward(tp_engine.params, cfg_model, ids)[0][0, -1]
+        rel = float((one - two).abs().max()) / float(one.abs().max())
+        log(f"[{tag}] last-position logits of request 0, tp={TP} against tp=1: "
+            f"max |diff| / max |logit| = {rel:.4e} (limit {LOGITS_REL_TOL})")
+        if not rel <= LOGITS_REL_TOL:
+            fail(f"{tag}: the sharded logits leave the tp=1 ones by {rel:.4e}")
+        flips = near_tie_flips(tag, params, cfg_model, prompts, want["tokens"],
+                               got["tokens"], [f"r{i}" for i in greedy])
+        log(f"[{tag}] greedy tokens equal to the tp=1 engine's for "
+            f"{len(greedy) - len(flips)} of {len(greedy)} requests; near-tie flips "
+            f"(limit {TOKEN_TIE_STEPS} bf16 steps): {flips or 'none'}")
+        log(f"[{tag}] {card}: decode {got['tok_s']:.1f} tok/s, {got['step_ms']:.2f} ms "
+            f"a decode step (two shards on one card: not a TP speed); tp=1 "
+            f"{want['tok_s']:.1f} tok/s, {want['step_ms']:.2f} ms; 4 requests in "
+            f"{got['wall']:.3f}s (tp=1 {want['wall']:.3f}s)")
+
+        # P/D: the tp=2 engine exports, a tp=1 engine imports.
+        dec = TorchEngine(cfg_1, params=params)
+        exported: dict[str, list[int]] = {}
+        checks: list[bool] = []
+        stage_kv, import_into = tp_engine._stage_kv, dec._import_into_slot
+
+        def record_ids(rid, ids, **kwargs):
+            exported[rid] = ids[: kwargs["meta"]["num_blocks"]]
+            return stage_kv(rid, ids, **kwargs)
+
+        def check_pages(idx, pi, blocks):
+            import_into(idx, pi, blocks)
+            src = exported[pi.req.kv_transfer_params["remote_request_id"]]
+            d_ids = torch.tensor(blocks[: len(src)], device=dec.device)
+            h = cfg_model.n_kv_heads // TP
+            for t, (kp, vp) in enumerate(zip(tp_engine.k_pages, tp_engine.v_pages)):
+                p_ids = torch.tensor(src, device=kp.device)
+                heads = slice(t * h, (t + 1) * h)
+                checks.append(torch.equal(dec.k_pages[:, d_ids, :, heads], kp[:, p_ids])
+                              and torch.equal(dec.v_pages[:, d_ids, :, heads], vp[:, p_ids]))
+
+        tp_engine._stage_kv, dec._import_into_slot = record_ids, check_pages
+        d_srv = EngineServer(cfg_1, engine=dec)
+        pd_tokens, _ = tap_engine(dec)
+        await d_srv.start()
+        try:
+            prompt = pd_prompts()["serial"]
+            body = {"prompt": prompt, "max_tokens": PD_TOKENS, "temperature": 0,
+                    "ignore_eos": True}
+            r1 = await asyncio.to_thread(http_post, srv.port, {
+                **body, "max_tokens": 1, "request_id": "pd-pre",
+                "kv_transfer_params": {"do_remote_decode": True}})
+            ktp = r1["json"]["kv_transfer_params"]
+            ops.reset_kernel_launches()
+            r2 = await asyncio.to_thread(http_post, d_srv.port, {
+                **body, "request_id": "pd-dec", "kv_transfer_params": ktp})
+            pd_k1 = ops.kernel_launches()[paged_attention.KERNEL]
+        finally:
+            await d_srv.stop()
+        if r2["headers"].get("x-kv-pull-route") != "host" or not checks or not all(checks):
+            fail(f"{tag}: the tp={TP} -> tp=1 handoff did not land the exporter's "
+                 f"pages per kv-head shard (route {r2['headers'].get('x-kv-pull-route')}, "
+                 f"checks {checks})")
+        # The monolithic tp=1 reference of the same prompt.
+        mono = EngineServer(cfg_1, engine=TorchEngine(cfg_1, params=params))
+        mono_tokens, _ = tap_engine(mono.engine)
+        await mono.start()
+        try:
+            await asyncio.to_thread(http_post, mono.port, {**body, "request_id": "pd-mono"})
+        finally:
+            await mono.stop()
+        ids = ref.engine.tokenizer.encode(prompt)
+        pd_flips = near_tie_flips(f"{tag} P/D", params, cfg_model, [ids],
+                                  {"pd": mono_tokens["pd-mono"]},
+                                  {"pd": pd_tokens["pd-dec"]}, ["pd"])
+        log(f"[{tag}] P/D tp={TP} -> tp=1: {r2['headers'].get('x-kv-pull-bytes')} bytes "
+            f"pulled in {r2['headers'].get('x-kv-pull-ms')} ms, pages equal per kv-head "
+            f"shard ({len(checks)} checks), K1 {pd_k1} launches on the decode engine; "
+            f"tokens against the tp=1 monolithic engine: "
+            f"{'equal' if not pd_flips else pd_flips}")
+    finally:
+        await srv.stop()
+    del tp_engine, dec
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return got["launches"][paged_attention.KERNEL], pd_k1
+
+
+def make_cert(path: str) -> str:
+    """tls.crt and tls.key for 127.0.0.1 in ``path``, by the ``cryptography``
+    package where it is installed, else the ``openssl`` CLI; returns which
+    (fails when neither is there)."""
+    from llm_d_inference_scheduler_tpu_torch.utils import tls
+
+    crt, key = os.path.join(path, "tls.crt"), os.path.join(path, "tls.key")
+    try:
+        cert_pem, key_pem = tls.create_self_signed_cert(common_name="localhost")
+    except RuntimeError:
+        try:
+            subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+                            "-keyout", key, "-out", crt, "-days", "2",
+                            "-subj", "/CN=localhost", "-addext",
+                            "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+                           check=True, capture_output=True, timeout=60)
+        except (OSError, subprocess.CalledProcessError) as e:
+            fail(f"tls: no certificate: neither cryptography nor openssl works ({e})")
+        return "the openssl CLI"
+    with open(crt, "wb") as f:
+        f.write(cert_pem)
+    with open(key, "wb") as f:
+        f.write(key_pem)
+    return "the cryptography package"
+
+
+CHAOS_SPEC = "http503:50"
+CHAOS_SEED = 7
+
+
+async def phase_tls_chaos(params, card: str, *, model: str = MODEL,
+                          device: str = "cuda") -> None:
+    """One https completion against a tp=2 engine served with --cert-path,
+    one chaos http503 (x-removal-reason: chaos-injected), and a completion
+    after it: the engine still serves."""
+    import ssl
+
+    from llm_d_inference_scheduler_tpu_torch import ops
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.ops import paged_attention
+    from llm_d_inference_scheduler_tpu_torch.utils.faults import FaultInjector
+
+    with tempfile.TemporaryDirectory() as certs:
+        made_by = make_cert(certs)
+        log(f"[tls] certificate written by {made_by}")
+        cfg, _ = parse_config(parallel_argv(model, device, tp=TP, extra=(
+            "--secure-serving", "--cert-path", certs, "--chaos", CHAOS_SPEC,
+            "--chaos-seed", str(CHAOS_SEED))))
+        cfg.max_batch, cfg.max_model_len = 2, 512
+        server = EngineServer(cfg, engine=TorchEngine(cfg, params=params))
+        await server.start()
+        # Request ids the shim passes and fails (its decision is a pure hash).
+        probe = FaultInjector.from_spec(CHAOS_SPEC, seed=CHAOS_SEED)
+        ids = [f"tls-{i}" for i in range(64)]
+        ok = [i for i in ids if probe.decide(i) is None][:2]
+        bad = next(i for i in ids if probe.decide(i) is not None)
+        context = ssl.create_default_context(cafile=os.path.join(certs, "tls.crt"))
+
+        def post(rid):
+            req = urllib.request.Request(
+                f"https://127.0.0.1:{server.port}/v1/completions",
+                data=json.dumps({"prompt": "Secure serving on the card.",
+                                 "max_tokens": 8, "temperature": 0}).encode(),
+                headers={"content-type": "application/json", "x-request-id": rid})
+            try:
+                with urllib.request.urlopen(req, timeout=120, context=context) as r:
+                    return r.status, r.headers.get("x-removal-reason"), json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                return e.code, e.headers.get("x-removal-reason"), json.loads(e.read())
+
+        try:
+            ops.reset_kernel_launches()
+            first = await asyncio.to_thread(post, ok[0])
+            k1 = ops.kernel_launches()[paged_attention.KERNEL]
+            chaos = await asyncio.to_thread(post, bad)
+            after = await asyncio.to_thread(post, ok[1])
+            triggered = dict(server.chaos.triggered)
+        finally:
+            await server.stop()
+    log(f"[tls] {card}: https completion {first[0]} ({first[2]['choices'][0]['text']!r}, "
+        f"K1 {k1} launches), chaos {chaos[0]} x-removal-reason={chaos[1]}, then "
+        f"{after[0]}; triggered {triggered}")
+    if first[0] != 200 or not first[2]["choices"][0]["text"] or k1 <= 0:
+        fail(f"tls: the https completion failed: {first}")
+    if chaos[:2] != (503, "chaos-injected") or triggered["http503"] != 1:
+        fail(f"tls: the chaos request was not answered 503 chaos-injected: {chaos}")
+    if after[0] != 200:
+        fail(f"tls: the engine stopped serving after the chaos request: {after}")
+
+
+async def phase_ep(cfg_model, params, card: str, *, model: str, served: str,
+                   device: str = "cuda") -> int:
+    """Mixtral with ep=2 (dense over each rank's local experts, one sum)
+    against a tp=1 dense engine on the same weights: phase 5's four
+    requests, greedy tokens equal up to reported near-ties. Returns K1's
+    launches on the ep=2 serve path."""
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.ops import paged_attention
+
+    tag = f"ep{EP}"
+    bodies = serve_prompts(served)
+    runs = {}
+    for key, ep in (("ref", 1), ("ep", EP)):
+        cfg, _ = parse_config(parallel_argv(model, device, ep=ep, extra=(
+            "--served-model-name", served)))
+        srv = EngineServer(cfg, engine=TorchEngine(cfg, params=params))
+        if ep > 1 and (srv.engine.layout is None or srv.engine.mcfg.moe_impl != "dense"):
+            fail(f"{tag}: --ep-size {ep} built no dense sharded engine")
+        await srv.start()
+        try:
+            runs[key] = await serve_counted(srv, bodies)
+        finally:
+            await srv.stop()
+        tok = srv.engine.tokenizer
+        del srv
+        gc.collect()
+    got, want = runs["ep"], runs["ref"]
+    k1 = got["launches"][paged_attention.KERNEL]
+    if got["steps"] <= 0 or k1 != cfg_model.n_layers * got["steps"]:
+        fail(f"{tag}: K1 did not launch n_layers times per decode step ({k1}, "
+             f"steps {got['steps']})")
+    greedy = [i for i, b in enumerate(bodies) if b["temperature"] == 0]
+    prompts = [tok.encode(bodies[i]["prompt"]) for i in greedy]
+    flips = near_tie_flips(tag, params, cfg_model, prompts, want["tokens"],
+                           got["tokens"], [f"r{i}" for i in greedy])
+    log(f"[{tag}] {served}, {card}: greedy tokens equal to the tp=1 dense engine's for "
+        f"{len(greedy) - len(flips)} of {len(greedy)} requests; near-tie flips "
+        f"(limit {TOKEN_TIE_STEPS} bf16 steps): {flips or 'none'}; decode steps "
+        f"{got['steps']}, K1 {k1}; decode {got['tok_s']:.1f} tok/s, "
+        f"{got['step_ms']:.2f} ms a decode step (two shards on one card: not an EP "
+        f"speed); tp=1 dense {want['tok_s']:.1f} tok/s, {want['step_ms']:.2f} ms")
+    return k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2258,7 +2628,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     tok = ByteTokenizer(128_256)
     serve_lens = [len(tok.encode(b["prompt"])) + 16 for b in serve_prompts()]
-    k1 = phase_kernels(serve_lens)
+    k1_by_heads = phase_kernels(serve_lens)
+    k1 = k1_by_heads[32, 8]
 
     # 4. full-width decode step
     cfg = get_config(MODEL)
@@ -2346,11 +2717,40 @@ def main() -> int:
     check_orbax_refused()
     for family in HF_CONFIGS:
         entries += asyncio.run(serve_checkpoint(family, card, k1, k2))
+    # 10. tensor- and expert-parallel serving on the one card: llama3-8b
+    # with tp=2 (phase 5's requests against tp=1, then a P/D handoff into a
+    # tp=1 engine), 10b TLS and chaos on a tp=2 engine, then Mixtral (16
+    # layers) with ep=2 against tp=1, dense. Weights from phases 4 and 7's
+    # seed; the sharded engines' shards are views of them.
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init_params(cfg, "cuda", "bfloat16", gen)
+    tp_launches, tp_pd_launches = asyncio.run(phase_tp(cfg, params, card))
+    asyncio.run(phase_tls_chaos(params, card))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init_params(moe_cfg, "cuda", "bfloat16", gen)
+    with tempfile.TemporaryDirectory() as model_dir:
+        with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(moe_cfg), f)
+        ep_launches = asyncio.run(phase_ep(moe_cfg, params, card, model=model_dir,
+                                           served=MOE_SERVED))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    entries += [{**k1_by_heads[32 // TP, 8 // TP], "path": f"{MODEL} tp{TP} serve",
+                 "launches": tp_launches},
+                {**k1, "path": f"{MODEL} tp{TP} P/D decode (tp=1)",
+                 "launches": tp_pd_launches},
+                {**k1, "path": f"{MOE_SERVED} ep{EP} serve", "launches": ep_launches}]
+
     log(f"[done] launches on the main paths: llama3-8b serve {dense_launches}, "
         f"llama3-8b P/D decode {pd_launches}, llama3-8b E/P/D decode {epd_launches}, "
         f"{MOE_SERVED} serve {moe_launches} (grouped_moe_ffn by path {moe_paths}), "
         f"{MOE_SERVED} embeddings {moe_embed['launches']} (by path "
-        f"{moe_embed['paths']}); "
+        f"{moe_embed['paths']}), {MODEL} tp{TP} serve {tp_launches}, its P/D decode "
+        f"(tp=1) {tp_pd_launches}, {MOE_SERVED} ep{EP} serve {ep_launches}; "
         f"peak device memory allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 

@@ -18,6 +18,7 @@ import torch
 
 from ..models import llama, safetensors_io
 from ..models.configs import ModelConfig
+from ..parallel import serve as par
 from ..utils.device import resolve_device, torch_dtype
 
 WEIGHTS = "model.safetensors"
@@ -49,9 +50,13 @@ def weights_path(path: str) -> str:
 
 
 def load_params(path: str, cfg: ModelConfig, device: str | torch.device = "cuda",
-                dtype: str | torch.dtype | None = None) -> dict:
+                dtype: str | torch.dtype | None = None,
+                layout: par.ServeLayout | None = None):
     """The stacked params of a converted directory on ``device``, cast to
-    ``dtype`` (default: the config's), each tensor checked against ``cfg``."""
+    ``dtype`` (default: the config's), each tensor checked against ``cfg``.
+    With ``layout`` each tensor is split on the host as it is read and each
+    shard goes to its rank's device (``ShardedParams``): no device holds the
+    whole model."""
     device = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     flat = safetensors_io.load_file(weights_path(path))
@@ -63,5 +68,11 @@ def load_params(path: str, cfg: ModelConfig, device: str | torch.device = "cuda"
         if tuple(flat[name].shape) != shape:
             raise ValueError(f"{path}: {name} is {tuple(flat[name].shape)}, the "
                              f"config needs {shape}")
+    if layout is not None:
+        par.validate_tp(cfg, layout.tp, layout.ep)
+        return par.from_rank_lists(
+            {name: [v.to(device=d, dtype=dt) for v, d in zip(
+                par.rank_views(name, flat.pop(name), cfg, layout), layout.devices)]
+             for name in want}, layout)
     return llama.nested_params({name: flat.pop(name).to(device=device, dtype=dt)
                                 for name in want})

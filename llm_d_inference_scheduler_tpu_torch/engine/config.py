@@ -1,6 +1,6 @@
 """Engine configuration (the subset of
-``llm_d_inference_scheduler_tpu/engine/config.py`` that single-device
-serving uses, plus the torch device and dtype)."""
+``llm_d_inference_scheduler_tpu/engine/config.py`` that the port serves,
+plus the torch devices and dtype)."""
 
 from __future__ import annotations
 
@@ -57,8 +57,47 @@ class EngineConfig:
     # role "encode", the vision tower); /health answers 503 "warming" until
     # then. A warm-up failure stops the engine.
     warmup: bool = False
+    # Tensor parallelism: shard params (Megatron TP) and KV pages (kv-head
+    # axis) over tp_size ranks (parallel/serve.py). 1 = one device.
+    tp_size: int = 1
+    # Expert parallelism (MoE models): the experts axis over ep_size ranks;
+    # composes with tp_size (tp_size * ep_size ranks in all).
+    ep_size: int = 1
     device: str = "cuda"          # "cpu" only when asked (tests)
+    # The device of each of the tp_size * ep_size ranks, comma-separated in
+    # rank order (a device may repeat: two ranks can share one card). Empty
+    # = the first tp_size * ep_size CUDA devices, or the CPU for every rank
+    # when ``device`` is "cpu".
+    devices: str = ""
     dtype: str | None = None      # None = the passed params' or the model config's
+    # TLS for the engine's HTTP surface: cert dir with tls.crt/tls.key, or a
+    # self-signed certificate (needs the ``cryptography`` package) when
+    # secure_serving is on without a path (utils/tls.py); with reload, a
+    # rotated pair is served to new connections.
+    secure_serving: bool = False
+    cert_path: str = ""
+    enable_cert_reload: bool = False
+    # TLS verification on the engine's own client legs (the /ec pulls, the
+    # /kv pull and its release): skip-verify by default (pod-local certs),
+    # or against a CA bundle, which takes precedence.
+    client_insecure_skip_verify: bool = True
+    client_ca_cert_path: str = ""
+    # Deterministic fault injection on the generate routes (utils/faults.py):
+    # comma-separated "kind:pct[:arg]", decided by a stable hash of
+    # (chaos_seed, kind, request id); empty = the ENGINE_CHAOS environment
+    # variable (same grammar).
+    chaos: str = ""
+    chaos_seed: int = 0
+
+    def rank_devices(self) -> list[str] | None:
+        """The device of each tp * ep rank: ``devices`` when given, the CPU
+        for every rank when ``device`` is "cpu", else None (the first CUDA
+        devices, ``parallel.serve.make_serve_layout``'s default)."""
+        if self.devices:
+            return [d.strip() for d in self.devices.split(",")]
+        if self.device.split(":")[0] == "cpu":
+            return [self.device] * (self.tp_size * self.ep_size)
+        return None
 
     def resolved_kv_events_port(self) -> int:
         return self.port + 1000 if self.kv_events_port == -1 else self.kv_events_port

@@ -1,7 +1,6 @@
-"""TorchEngine: continuous-batching PyTorch engine on one device.
+"""TorchEngine: continuous-batching PyTorch engine, on one device or sharded.
 
-Port of ``TpuEngine`` (``llm_d_inference_scheduler_tpu/engine/core.py``) for
-single-device serving:
+Port of ``TpuEngine`` (``llm_d_inference_scheduler_tpu/engine/core.py``):
 
 - One engine thread owns the device and alternates admission/prefill with
   fused decode chunks. The HTTP handlers talk to it through thread-safe
@@ -63,10 +62,19 @@ single-device serving:
 - Weights: passed in, drawn from the seed, or loaded from a converted
   directory (``engine/checkpoint.py``) named by ``model`` or
   ``checkpoint_path``.
+- Tensor/expert parallel (``tp_size``, ``ep_size``; ``parallel/serve.py``):
+  the params are ``ShardedParams`` (passed-in full weights are split, a
+  checkpoint is split as it is read) and the pages one K/V pair per tp rank
+  ``[L, N, block, Hkv/tp, Dh]``. Every path runs on them; the ``/kv`` wire
+  is unchanged: an export joins the kv-head shards into the single-device
+  layout and an import splits them, so sharded and single-device engines
+  (port or JAX) hand KV to each other as before. The grouped MoE FFN is
+  refused there: the sharded path stays dense, as in the JAX engine.
+- A TLS exporter names ``https`` as its ``remote_scheme``; the importer
+  dials it with the engine's client TLS policy (``utils/tls.py``).
 
 Not in this slice (the JAX engine has them): the device-to-device transfer
-server and the sharded/multi-host KV wires, multi-host,
-tensor/expert/pipeline meshes.
+server and the multi-host KV wires, multi-host, pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -91,8 +99,10 @@ import torch
 from ..models import llama, vision
 from ..ops import _build, grouped_moe, paged_attention
 from ..ops.moe import check_tileable
+from ..parallel import serve as par
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.hashing import chain_block_hashes
+from ..utils.tls import client_verify
 from . import checkpoint, kv_wire
 from .blocks import BlockAllocator, PrefixCachingAllocator
 from .config import EngineConfig
@@ -153,6 +163,9 @@ class TorchEngine:
         self.cfg = cfg
         self.mcfg = cfg.model_config
         if cfg.grouped_moe and self.mcfg.n_experts:
+            if cfg.tp_size > 1 or cfg.ep_size > 1:
+                raise ValueError("grouped_moe requires tp_size=ep_size=1 "
+                                 "(the sharded path stays dense)")
             # A geometry the kernel cannot tile fails here, not mid-serve.
             check_tileable(self.mcfg.d_model, self.mcfg.d_ff)
             self.mcfg = dataclasses.replace(self.mcfg, moe_impl="grouped")
@@ -162,16 +175,26 @@ class TorchEngine:
             # the checkpoint. One the port cannot read (Orbax, no weights)
             # is refused by the load below, never served with random weights.
             cfg.checkpoint_path = cfg.model
-        self.device = resolve_device(cfg.device)
+        # tp_size * ep_size > 1: the ranks' devices (parallel/serve.py); the
+        # first holds the residual stream, sampling and the vision tower.
+        self.layout: par.ServeLayout | None = None
+        if cfg.tp_size * cfg.ep_size > 1:
+            par.validate_tp(self.mcfg, cfg.tp_size, cfg.ep_size)
+            self.layout = par.make_serve_layout(cfg.rank_devices(), cfg.tp_size,
+                                                cfg.ep_size)
+            self.device = self.layout.devices[0]
+        else:
+            self.device = resolve_device((cfg.rank_devices() or [cfg.device])[0])
         # Before any weight is read: a tokenizer that cannot load fails fast.
         self.tokenizer = get_tokenizer(cfg.tokenizer, self.mcfg.vocab_size)
         # Passed-in params fix the dtype unless the config names one.
         self.dtype = torch_dtype(
-            cfg.dtype or (params["embed"].dtype if params is not None
+            cfg.dtype or (_embed(params).dtype if params is not None
                           else self.mcfg.dtype))
         if params is None and cfg.checkpoint_path:
             params = checkpoint.load_params(cfg.checkpoint_path, self.mcfg,
-                                            self.device, self.dtype)
+                                            self.device, self.dtype,
+                                            layout=self.layout)
         self.engine_id = f"torch-{uuid.uuid4().hex[:8]}"
         self.model_name = cfg.model_name
 
@@ -214,16 +237,27 @@ class TorchEngine:
 
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-            params = llama.init_params(self.mcfg, self.device, self.dtype, gen)
-        embed = params["embed"]
+            params = llama.init_params(self.mcfg, self.device, self.dtype, gen,
+                                       layout=self.layout)
+        elif self.layout is not None and not isinstance(params, par.ShardedParams):
+            # Full weights (init_params, params_from_numpy, convert_hf) are
+            # split here; on a device that holds them the shards are views.
+            params = par.shard_params(params, self.mcfg, self.layout)
+        embed = _embed(params)
         if embed.device.type != self.device.type or embed.dtype != self.dtype:
             raise ValueError(f"params are {embed.dtype} on {embed.device}; the "
                              f"engine runs {self.dtype} on {self.device}")
         self.params = params
-        kshape = (self.mcfg.n_layers, self.n_blocks, block,
-                  self.mcfg.n_kv_heads, self.mcfg.head_dim)
-        self.k_pages = torch.zeros(kshape, dtype=self.dtype, device=self.device)
-        self.v_pages = torch.zeros(kshape, dtype=self.dtype, device=self.device)
+        # One K/V page pair on one device, or one per tp rank (a list).
+        if self.layout is not None:
+            self.k_pages, self.v_pages = par.alloc_sharded_pages(
+                self.mcfg, self.layout, self.n_blocks, self.dtype)
+        else:
+            kshape = (self.mcfg.n_layers, self.n_blocks, block,
+                      self.mcfg.n_kv_heads, self.mcfg.head_dim)
+            self.k_pages = torch.zeros(kshape, dtype=self.dtype, device=self.device)
+            self.v_pages = torch.zeros(kshape, dtype=self.dtype, device=self.device)
+        self._client_ssl = None  # client_tls()'s context, built on first use
 
         # /health answers 503 "warming" until the engine thread has warmed
         # up; a warm-up failure is kept here and stops the engine.
@@ -913,7 +947,7 @@ class TorchEngine:
         # state is the forward's f32 copy of a bf16/f32 value: the cast back
         # is exact).
         last = hidden[torch.arange(N, device=self.device), (lens - 1).long()]
-        logits = (last.to(self.dtype) @ self.params["lm_head"]).float()
+        logits = llama.lm_logits(self.params, last.to(self.dtype))
         return sample_tokens(logits, self._sample_gen, knobs)
 
     def _mm_args(self, req: EngineRequest) -> dict[str, torch.Tensor]:
@@ -1017,12 +1051,24 @@ class TorchEngine:
 
     # ---- P/D export (prefill side) ---------------------------------------
 
+    def _page_pairs(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """(K, V) pages per tp rank (one pair on one device)."""
+        if self.layout is None:
+            return [(self.k_pages, self.v_pages)]
+        return list(zip(self.k_pages, self.v_pages))
+
     def _gather_to_host(self, ids: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
-        """The pages of ``ids`` as host tensors [L, len(ids), block, Hkv, Dh].
-        Blocks the engine thread until the device has written them (the copy
-        waits behind any decode chunk already queued)."""
-        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
-        return self.k_pages[:, idx].cpu(), self.v_pages[:, idx].cpu()
+        """The pages of ``ids`` as host tensors [L, len(ids), block, Hkv, Dh]:
+        the single-device layout, with a sharded engine's kv-head shards
+        joined in rank order. Blocks the engine thread until the device has
+        written them (the copy waits behind any decode chunk already
+        queued)."""
+        ks, vs = [], []
+        for kp, vp in self._page_pairs():
+            idx = torch.tensor(ids, dtype=torch.long, device=kp.device)
+            ks.append(kp[:, idx].cpu())
+            vs.append(vp[:, idx].cpu())
+        return par.join_kv_heads(ks), par.join_kv_heads(vs)
 
     def _maybe_stage_chunk(self, s: _Slot) -> None:
         """Chunk-streamed remote-decode prefill (``stream_chunks``): gather the
@@ -1146,10 +1192,12 @@ class TorchEngine:
         t0 = time.monotonic()
         try:
             scheme = ktp.get("remote_scheme") or "http"
-            if scheme != "http":
-                raise ValueError(f"{scheme} /kv pull: this engine dials http only")
+            if scheme not in ("http", "https"):
+                raise ValueError(f"{scheme} /kv pull: this engine dials http or https")
             path = "/kv/" + urllib.parse.quote(str(ktp["remote_request_id"]), safe="")
-            with kv_wire.KvClient(ktp["remote_host"], ktp["remote_port"]) as c:
+            context = self.client_tls() if scheme == "https" else None
+            with kv_wire.KvClient(ktp["remote_host"], ktp["remote_port"],
+                                  context=context) as c:
                 if ktp.get("stream_chunks"):
                     self._pull_host_chunks(pi, c, path, t0)
                 else:
@@ -1163,6 +1211,16 @@ class TorchEngine:
         with self._cond:
             self._import_ready.append(pi)
             self._cond.notify()
+
+    def client_tls(self):
+        """The TLS context of the engine's client legs (the /kv pull here,
+        the server's /ec pulls): skip-verify for pod-local certificates by
+        default, or a CA bundle, which takes precedence. Built once (the
+        config does not change)."""
+        if self._client_ssl is None:
+            self._client_ssl = client_verify(self.cfg.client_insecure_skip_verify,
+                                             self.cfg.client_ca_cert_path or None)
+        return self._client_ssl
 
     def _pull_full(self, pi: _PendingImport, c: kv_wire.KvClient, path: str,
                    t0: float) -> None:
@@ -1305,9 +1363,13 @@ class TorchEngine:
         first = int(ktp["remote_first_token"]
                     if ktp.get("remote_first_token") is not None
                     else headers["x-kv-first-token"])
-        ids = torch.tensor(blocks[:real_nb], dtype=torch.long, device=self.device)
-        self.k_pages[:, ids] = k[:, :real_nb].to(self.device, self.dtype)
-        self.v_pages[:, ids] = v[:, :real_nb].to(self.device, self.dtype)
+        tp = len(self._page_pairs())
+        for (kp, vp), ks, vs in zip(self._page_pairs(),
+                                    par.split_kv_heads(k[:, :real_nb], tp),
+                                    par.split_kv_heads(v[:, :real_nb], tp)):
+            ids = torch.tensor(blocks[:real_nb], dtype=torch.long, device=kp.device)
+            kp[:, ids] = ks.to(kp.device, self.dtype)
+            vp[:, ids] = vs.to(vp.device, self.dtype)
         pi.kv = None
 
         slot = _Slot(req=req, out=pi.out, loop=pi.loop, blocks=blocks,
@@ -1486,8 +1548,16 @@ class TorchEngine:
             "remote_first_token": first_token,
             "remote_host": self.cfg.host,
             "remote_port": self.advertised_port,
-            "remote_scheme": "http",
+            # A TLS exporter's /kv is https: the importer dials that scheme.
+            "remote_scheme": "https" if self.cfg.secure_serving else "http",
         }
+
+
+def _embed(params) -> torch.Tensor:
+    """The (first rank's) embedding table: the params' device and dtype."""
+    if isinstance(params, par.ShardedParams):
+        return params.shards[0]["embed"]
+    return params["embed"]
 
 
 _DUMMY_REQ = EngineRequest(request_id="__pad__", prompt_token_ids=[0])

@@ -10,12 +10,14 @@ numpy bf16 dtype is needed on either side.
 
 The client is ``http.client`` (no HTTP package beyond the standard library):
 one keep-alive connection per pull, so a chunk long-poll does not open a TCP
-connection per poll.
+connection per poll; over TLS when the exporter serves ``https`` (the
+context carries the engine's client policy, ``utils/tls.client_verify``).
 """
 
 from __future__ import annotations
 
 import http.client
+import ssl
 import urllib.parse
 
 import torch
@@ -61,13 +63,19 @@ def decode_kv(payload: bytes | bytearray, dtype: torch.dtype,
 
 
 class KvClient:
-    """Blocking keep-alive client for one exporter's ``/kv`` routes.
+    """Blocking keep-alive client for one exporter's ``/kv`` routes (TLS
+    with ``context``).
 
     ``get`` returns (status, lower-cased headers, body); 200, 202 and 204 are
     answers of the protocol, any other status raises ``KvHTTPError``."""
 
-    def __init__(self, host: str, port: int, timeout: float = 30.0):
-        self.conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+    def __init__(self, host: str, port: int, timeout: float = 30.0,
+                 context: ssl.SSLContext | None = None):
+        if context is not None:
+            self.conn = http.client.HTTPSConnection(host, int(port), timeout=timeout,
+                                                    context=context)
+        else:
+            self.conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
 
     def __enter__(self) -> "KvClient":
         return self

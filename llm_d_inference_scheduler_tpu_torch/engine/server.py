@@ -30,7 +30,18 @@ with the same JSON shapes, so the router schedules onto either engine alike:
   them from every source at once, restores the items' global order and
   prefills with the embeddings spliced in at placeholder tokens;
 - the shared-storage probe: ``cache_hit_threshold`` in a generate body,
-  answered ``finish_reason: "cache_threshold"`` when the cache is too cold.
+  answered ``finish_reason: "cache_threshold"`` when the cache is too cold;
+- TLS serving (``--secure-serving``: ``--cert-path`` or a self-signed
+  certificate, ``--enable-cert-reload``), and the client legs' policy
+  (``--client-verify``, ``--client-ca-cert``) on the ``/ec`` and ``/kv``
+  pulls (``utils/tls.py``);
+- the chaos shim (``--chaos``/``ENGINE_CHAOS``, ``utils/faults.py``): on
+  the generate routes, before the deadline check, ``delay``, ``http503``
+  (``x-removal-reason: chaos-injected``), ``reset`` and ``stall``, decided
+  by request id; and the lifecycle kinds, decided once per ``host:port``:
+  ``spawn_fail`` (``start`` raises before the engine starts),
+  ``slow_start`` (``/health`` reports ``warming`` for ``arg`` ms) and
+  ``stall_drain`` (``/metrics`` adds ``arg`` phantom running requests).
 
 Non-streamed responses carry ``x-kv-hit-blocks`` / ``x-kv-hit-tokens`` and
 ``x-engine-queue-ms``, and a decode leg that pulled KV ``x-kv-pull-ms``,
@@ -50,7 +61,7 @@ import hashlib
 import http.client
 import json
 import logging
-import ssl
+import os
 import time
 import urllib.parse
 import uuid
@@ -58,6 +69,8 @@ from typing import Any
 
 import numpy as np
 
+from ..utils.faults import FaultInjector
+from ..utils.tls import TlsServing
 from ..utils.tracing import tracer
 from . import kv_wire
 from .config import EngineConfig
@@ -215,6 +228,21 @@ class EngineServer:
         self.port = cfg.port
         self._server: asyncio.base_events.Server | None = None
         self._conns: set[asyncio.Task] = set()
+        self._tls: TlsServing | None = None
+        # The chaos shim; a mutable attribute, so a test can flip
+        # ``chaos.enabled`` mid-run. Lifecycle kinds decide once per pod
+        # identity: the same seed fails the same spawns every run.
+        self.chaos = FaultInjector.from_spec(
+            cfg.chaos or os.environ.get("ENGINE_CHAOS", ""), seed=cfg.chaos_seed)
+        pod_id = f"{cfg.host}:{cfg.port}"
+
+        def lifecycle(kind):
+            return self.chaos.decide_lifecycle(kind, pod_id) if self.chaos else None
+
+        self._chaos_spawn_fail = lifecycle("spawn_fail")
+        self._chaos_slow_start = lifecycle("slow_start")
+        self._chaos_stall_drain = lifecycle("stall_drain")
+        self._ready_at_mono = 0.0  # slow_start: /health reports warming until then
         self._routes = {
             ("POST", "/v1/completions"): self.completions,
             ("POST", "/v1/chat/completions"): self.chat_completions,
@@ -242,13 +270,24 @@ class EngineServer:
     # ---- lifecycle -----------------------------------------------------
 
     async def start(self):
+        if self._chaos_spawn_fail is not None:
+            raise RuntimeError(f"chaos spawn_fail: engine {self.cfg.host}:"
+                               f"{self.cfg.port} refused to start")
+        if self._chaos_slow_start is not None:
+            self._ready_at_mono = (time.monotonic()
+                                   + self._chaos_slow_start.arg / 1000.0)
+        if self.cfg.secure_serving and self._tls is None:
+            # Before the engine starts: a bad cert path fails at once.
+            self._tls = TlsServing(self.cfg.cert_path or None,
+                                   self.cfg.enable_cert_reload)
         # The SSE hub is attached before the engine thread can publish, and
         # the listener bound first, so the engine knows the port /kv peers
         # dial (and its ZMQ event leg's default, port + 1000).
         if self.engine.kv_events is not None:
             self.engine.kv_events.hub = EventHub(asyncio.get_running_loop())
-        self._server = await asyncio.start_server(self._client, self.cfg.host,
-                                                  self.cfg.port)
+        self._server = await asyncio.start_server(
+            self._client, self.cfg.host, self.cfg.port,
+            ssl=self._tls.ssl_context if self._tls else None)
         self.port = self._server.sockets[0].getsockname()[1]
         self.engine.advertised_port = self.port
         try:
@@ -257,8 +296,9 @@ class EngineServer:
             self._server.close()
             await self._server.wait_closed()
             raise
-        log.info("engine %s serving %s on %s:%d", self.engine.engine_id,
-                 self.engine.model_name, self.cfg.host, self.port)
+        log.info("engine %s serving %s on %s:%d%s", self.engine.engine_id,
+                 self.engine.model_name, self.cfg.host, self.port,
+                 " (TLS)" if self._tls else "")
 
     async def stop(self):
         if self._server is not None:
@@ -268,6 +308,9 @@ class EngineServer:
         if self._server is not None:
             await self._server.wait_closed()
         await self.engine.stop()
+        if self._tls is not None:
+            self._tls.close()
+            self._tls = None
 
     # ---- HTTP plumbing -------------------------------------------------
 
@@ -328,7 +371,8 @@ class EngineServer:
                 raise HTTPError(405 if known else 404,
                                 f"{method} {path} not served")
             if method == "POST" and path in self.GEN_PATHS:
-                await self._within_deadline(handler, conn, body)
+                if not await self._inject_fault(conn, body):
+                    await self._within_deadline(handler, conn, body)
             else:
                 await handler(conn, body)
         except HTTPError as e:
@@ -343,9 +387,52 @@ class EngineServer:
                             "text/plain; charset=utf-8")
         return conn.keep_alive
 
-    # ---- deadlines ------------------------------------------------------
+    # ---- chaos and deadlines --------------------------------------------
 
     GEN_PATHS = ("/v1/completions", "/v1/chat/completions", "/v1/responses")
+
+    @staticmethod
+    def _chaos_request_id(conn: _Conn, body: bytes) -> str:
+        """The fault decision's identity: ``x-request-id`` (the router
+        always forwards one), else the body's ``request_id``, else a random
+        id (a valid sample, not a replayable one)."""
+        rid = conn.headers.get("x-request-id")
+        if rid:
+            return rid
+        try:
+            rid = json.loads(body).get("request_id")
+        except Exception:
+            rid = None
+        return str(rid) if rid else uuid.uuid4().hex
+
+    async def _inject_fault(self, conn: _Conn, body: bytes) -> bool:
+        """The JAX server's chaos half of its generate-route middleware;
+        True when the fault answered the request. ``reset`` closes the
+        connection before any response byte (a pre-stream transport error,
+        the retryable class); ``http503`` answers a retryable 503;
+        ``delay`` sleeps ``arg`` ms and serves; ``stall`` starts an SSE
+        response, writes one partial event and closes after ``arg`` ms (10
+        by default)."""
+        if self.chaos is None or not self.chaos.rules:
+            return False
+        rule = self.chaos.decide(self._chaos_request_id(conn, body))
+        if rule is None:
+            return False
+        log.info("chaos: injecting %s for %s", rule.kind, conn.path)
+        if rule.kind == "delay":
+            await asyncio.sleep(rule.arg / 1000.0)
+            return False
+        if rule.kind == "http503":
+            await conn.send_json({"error": "chaos: injected 503"}, status=503,
+                                 headers={"x-removal-reason": "chaos-injected"})
+            return True
+        if rule.kind == "stall":
+            await conn.start_stream()
+            await conn.write_chunk(b'data: {"choices":[{"index":0,"text":"chaos"}]}\n\n')
+            await asyncio.sleep((rule.arg or 10.0) / 1000.0)
+        conn.keep_alive = False  # reset, and a stall's end: drop the connection
+        conn.writer.close()
+        return True
 
     async def _within_deadline(self, handler, conn: _Conn, body: bytes) -> None:
         """The JAX server's deadline enforcement on the generate routes: an
@@ -492,14 +579,14 @@ class EngineServer:
     def _fetch_ec(self, source: str, rid: str, headers: dict[str, str]) -> bytes | None:
         """GET ``/ec/{rid}`` from one encode source (``host:port``, or a URL
         when the sidecar's encoder leg is TLS), on a worker thread; the
-        body, or None after a warning. An ``https`` source is not verified,
-        the JAX engine's default client policy."""
+        body, or None after a warning. An ``https`` source follows the
+        engine's client policy (skip-verify by default, or the CA bundle)."""
         base = urllib.parse.urlsplit(source if "://" in source else f"http://{source}")
         try:
             if base.scheme == "https":
                 conn = http.client.HTTPSConnection(
                     base.hostname, base.port or 443, timeout=self.EC_TIMEOUT_S,
-                    context=ssl._create_unverified_context())
+                    context=self.engine.client_tls())
             else:
                 conn = http.client.HTTPConnection(base.hostname, base.port or 80,
                                                   timeout=self.EC_TIMEOUT_S)
@@ -981,12 +1068,25 @@ class EngineServer:
         }]})
 
     async def metrics(self, conn: _Conn, raw: bytes) -> None:
-        await conn.send(200, self.engine.telemetry.render(), METRICS_CONTENT_TYPE)
+        body = self.engine.telemetry.render()
+        if self._chaos_stall_drain is not None:
+            # Phantom in-flight work in the exposition only: a drain never
+            # sees the pod empty (the engine itself is idle).
+            phantom = max(1.0, self._chaos_stall_drain.arg or 1.0)
+            lines = []
+            for line in body.decode().splitlines():
+                if line.startswith("jetstream:num_requests_running "):
+                    val = float(line.rsplit(" ", 1)[1])
+                    line = f"jetstream:num_requests_running {val + phantom}"
+                lines.append(line)
+            body = ("\n".join(lines) + "\n").encode()
+        await conn.send(200, body, METRICS_CONTENT_TYPE)
 
     async def health(self, conn: _Conn, raw: bytes) -> None:
+        warming = self.engine.warming or time.monotonic() < self._ready_at_mono
         status = ("failed" if self.engine.failure is not None
                   else "draining" if self.draining
-                  else "warming" if self.engine.warming else "ok")
+                  else "warming" if warming else "ok")
         await conn.send_json({"status": status,
                               "engine_id": self.engine.engine_id,
                               "model": self.engine.model_name,
@@ -1209,9 +1309,43 @@ def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain ops on the CPU")
+    p.add_argument("--tp-size", type=int, default=1,
+                   help="tensor-parallel degree: shard params + KV pages over "
+                        "this many ranks")
+    p.add_argument("--ep-size", type=int, default=1,
+                   help="expert-parallel degree for MoE models (composes "
+                        "with --tp-size)")
+    p.add_argument("--devices", default="",
+                   help="the device of each tp*ep rank, comma-separated in "
+                        "rank order (may repeat one device); default: the "
+                        "first tp*ep CUDA devices, or the CPU with --device cpu")
     p.add_argument("--dtype", default=None,
                    help="parameter/KV dtype (default: the model config's)")
     p.add_argument("--drain-timeout", type=float, default=30.0)
+    p.add_argument("--secure-serving", action="store_true",
+                   help="serve over TLS (self-signed, which needs the "
+                        "'cryptography' package, unless --cert-path names "
+                        "tls.crt/tls.key)")
+    p.add_argument("--cert-path", default="",
+                   help="directory holding tls.crt + tls.key")
+    p.add_argument("--enable-cert-reload", action="store_true",
+                   help="re-read --cert-path when it changes (cert-manager "
+                        "rotation)")
+    p.add_argument("--chaos", default="",
+                   help="deterministic fault injection on the generate "
+                        "routes: comma-separated kind:pct[:arg] with kind in "
+                        "reset|http503|delay|stall (arg = ms) or the "
+                        "lifecycle kinds spawn_fail|slow_start|stall_drain; "
+                        "also via the ENGINE_CHAOS env var; empty disables")
+    p.add_argument("--chaos-seed", type=int, default=0,
+                   help="seed folded into the fault-decision hash")
+    p.add_argument("--client-verify", action="store_true",
+                   help="verify TLS on the engine's outbound legs (ec/kv "
+                        "pulls) with the system trust store instead of the "
+                        "pod-local skip-verify default")
+    p.add_argument("--client-ca-cert", default="",
+                   help="CA bundle for the outbound legs (implies "
+                        "verification against this bundle)")
     args = p.parse_args(argv)
     cfg = EngineConfig(model=args.model, served_model_name=args.served_model_name,
                        checkpoint_path=args.checkpoint, port=args.port,
@@ -1222,7 +1356,16 @@ def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
                        prefill_chunk=args.prefill_chunk,
                        kv_events_port=args.kv_events_port, seed=args.seed,
                        role=args.role, warmup=args.warmup,
-                       device=args.device, dtype=args.dtype)
+                       device=args.device, dtype=args.dtype,
+                       tp_size=args.tp_size, ep_size=args.ep_size,
+                       devices=args.devices,
+                       secure_serving=args.secure_serving,
+                       cert_path=args.cert_path,
+                       enable_cert_reload=args.enable_cert_reload,
+                       chaos=args.chaos, chaos_seed=args.chaos_seed,
+                       client_insecure_skip_verify=not (
+                           args.client_verify or args.client_ca_cert),
+                       client_ca_cert_path=args.client_ca_cert)
     return cfg, args.drain_timeout
 
 

@@ -46,6 +46,8 @@ from typing import Any
 
 import torch
 
+from ..parallel import serve as par
+from ..parallel.shardings import param_splits, put_split, split_tensor
 from ..utils.device import resolve_device, torch_dtype
 from . import safetensors_io
 from .configs import ModelConfig
@@ -140,31 +142,49 @@ def load_hf_state_dict(src: str) -> dict[str, torch.Tensor]:
 
 def convert_state_dict(state_dict: dict[str, torch.Tensor], cfg: ModelConfig,
                        dtype: str | torch.dtype | None = None,
-                       device: str | torch.device = "cuda") -> dict:
+                       device: str | torch.device = "cuda",
+                       layout: par.ServeLayout | None = None):
     """An HF Llama/Mixtral/Qwen3 state dict as the port's params on
     ``device`` in ``dtype`` (default: the config's), one tensor moved at a
-    time into the preallocated stacked tensors."""
-    device = resolve_device(device)
+    time into the preallocated stacked tensors. With ``layout`` each tensor
+    is split as it is read into every rank's preallocated shard
+    (``ShardedParams``; no device holds the whole model)."""
     dt = torch_dtype(dtype or cfg.dtype)
+    sharded = layout is not None
+    if sharded:
+        par.validate_tp(cfg, layout.tp, layout.ep)
+    else:
+        layout = par.ServeLayout((resolve_device(device),))
+    device = layout.devices[0]
     E = cfg.n_experts
+    shapes = param_shapes(cfg)
+    splits = param_splits(cfg)
+    ranks = list(layout.ranks())
+
+    def local(name, tr, er):
+        full = torch.empty(shapes[name], device="meta")
+        return split_tensor(full, splits[name], tr, layout.tp, er, layout.ep).shape
+
+    outs = [{name: torch.empty(local(name, tr, er), dtype=dt, device=layout.devices[r])
+             for name in shapes} for r, tr, er in ranks]
 
     def get(key):
         if key not in state_dict:
             raise KeyError(f"checkpoint missing {key!r}")
         return state_dict[key]
 
-    def put(dst: torch.Tensor, key: str, linear: bool) -> None:
+    def put(name: str, index: tuple[int, ...], key: str, linear: bool) -> None:
         src = get(key).to(device)
         if linear:
             src = src.t()
-        if src.shape != dst.shape:  # copy_ would broadcast a wrong shape
+        want = shapes[name][len(index):]
+        if tuple(src.shape) != want:  # copy_ would broadcast a wrong shape
             raise ValueError(f"{key} is {tuple(get(key).shape)}, which does not "
-                             f"fit {tuple(dst.shape)} (linear: {linear})")
-        dst.copy_(src)
+                             f"fit {want} (linear: {linear})")
+        for (_, tr, er), out in zip(ranks, outs):
+            put_split(out[name], index, src, shapes[name], splits[name], tr,
+                      layout.tp, er, layout.ep)
 
-    shapes = param_shapes(cfg)
-    out = {name: torch.empty(shape, dtype=dt, device=device)
-           for name, shape in shapes.items()}
     for i in range(cfg.n_layers):
         p = f"model.layers.{i}."
         keys = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
@@ -174,23 +194,27 @@ def convert_state_dict(state_dict: dict[str, torch.Tensor], cfg: ModelConfig,
         else:
             keys |= {"w1": "mlp.gate_proj", "w3": "mlp.up_proj", "w2": "mlp.down_proj"}
         for name, hf in keys.items():
-            put(out[f"layers.{name}"][i], f"{p}{hf}.weight", linear=True)
+            put(f"layers.{name}", (i,), f"{p}{hf}.weight", linear=True)
         for e in range(E):
             for w in ("w1", "w2", "w3"):
-                put(out[f"layers.{w}"][i, e],
+                put(f"layers.{w}", (i, e),
                     f"{p}block_sparse_moe.experts.{e}.{w}.weight", linear=True)
         norms = {"ln_attn": "input_layernorm", "ln_mlp": "post_attention_layernorm"}
         if cfg.qk_norm:
             norms |= {"q_norm": "self_attn.q_norm", "k_norm": "self_attn.k_norm"}
         for name, hf in norms.items():
-            put(out[f"layers.{name}"][i], f"{p}{hf}.weight", linear=False)
-    put(out["embed"], "model.embed_tokens.weight", linear=False)
-    put(out["final_norm"], "model.norm.weight", linear=False)
+            put(f"layers.{name}", (i,), f"{p}{hf}.weight", linear=False)
+    put("embed", (), "model.embed_tokens.weight", linear=False)
+    put("final_norm", (), "model.norm.weight", linear=False)
     if "lm_head.weight" in state_dict:
-        put(out["lm_head"], "lm_head.weight", linear=True)
-    else:  # tied embeddings
-        out["lm_head"].copy_(out["embed"].t())
-    return nested_params(out)
+        put("lm_head", (), "lm_head.weight", linear=True)
+    else:  # tied embeddings (a rank's vocab columns are its embed rows)
+        for out in outs:
+            out["lm_head"].copy_(out["embed"].t())
+    if sharded:
+        return par.from_rank_lists({name: [out[name] for out in outs]
+                                    for name in shapes}, layout)
+    return nested_params(outs[0])
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -17,6 +17,13 @@
   dispatches on the parameters, so every path serves both families.
   ``cfg.moe_impl == "grouped"`` takes the grouped path (kernel K2), else the
   dense-over-experts ``_moe_ffn``.
+- Tensor/expert parallel (``parallel/serve.py``): every function also takes
+  ``ShardedParams``, one dict per rank. Attention runs per ``tp`` rank on
+  its local heads and its own pages (then a list of per-rank page tensors),
+  with one sum after ``wo`` and one after ``w2``; the embedding is a masked
+  lookup per vocab shard and a sum, the logits are gathered. One rank runs
+  the same code with no sum and no gather: single-device serving is that
+  case.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..ops.moe import moe_ffn_grouped, top_k_gates
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_decode_attention_cuda
 from ..ops.rope import apply_rope, rope_table
+from ..parallel import serve as par
 from ..utils.device import resolve_device, torch_dtype
 from .configs import ModelConfig
 
@@ -39,47 +47,51 @@ Params = dict[str, Any]
 
 def init_params(cfg: ModelConfig, device: str | torch.device = "cuda",
                 dtype: str | torch.dtype | None = None,
-                generator: torch.Generator | None = None) -> Params:
+                generator: torch.Generator | None = None,
+                layout: par.ServeLayout | None = None) -> Params:
     """Random-init parameters in the stacked-layer layout, drawn directly on
     ``device`` in ``dtype`` (a full-width f32 draw on the host would need
     ~32 GB for llama3-8b). Normal(0, 1) * fan_in**-0.5, as the JAX package.
-    MoE configs get expert-stacked FFN weights and a router."""
+    MoE configs get expert-stacked FFN weights and a router. With ``layout``
+    the same full weights are drawn one tensor at a time on the layout's
+    first device and split into its shards (``ShardedParams``): the
+    counterpart of the JAX ``init_sharded_params``."""
+    if layout is not None:
+        par.validate_tp(cfg, layout.tp, layout.ep)
+        device = layout.devices[0]
     device = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    L, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    E = cfg.n_experts
-    ffn_shape = (L, E, D, F_) if E else (L, D, F_)
-    down_shape = (L, E, F_, D) if E else (L, F_, D)
+    D, F_ = cfg.d_model, cfg.d_ff
+    shapes = param_shapes(cfg)
+    flat: dict[str, Any] = {}
 
-    def w(shape, fan_in):
-        t = torch.randn(shape, generator=generator, device=device, dtype=dtype)
-        return t.mul_(fan_in ** -0.5)
+    def keep(name, t):
+        flat[name] = t if layout is None else par.split_to_ranks(name, t, cfg, layout)
 
-    def ones(shape):
-        return torch.ones(shape, device=device, dtype=dtype)
+    def w(name, fan_in):
+        t = torch.randn(shapes[name], generator=generator, device=device, dtype=dtype)
+        keep(name, t.mul_(fan_in ** -0.5))
 
-    embed = w((V, D), D)
-    layers = {
-        "wq": w((L, D, Hq * Dh), D),
-        "wk": w((L, D, Hkv * Dh), D),
-        "wv": w((L, D, Hkv * Dh), D),
-        "wo": w((L, Hq * Dh, D), Hq * Dh),
-        "w1": w(ffn_shape, D),
-        "w2": w(down_shape, F_),
-        "w3": w(ffn_shape, D),
-        "ln_attn": ones((L, D)),
-        "ln_mlp": ones((L, D)),
-    }
-    if cfg.qk_norm:
-        layers["q_norm"] = ones((L, Dh))
-        layers["k_norm"] = ones((L, Dh))
-    if E:
-        layers["router"] = w((L, D, E), D)
-    return {"embed": embed, "layers": layers, "final_norm": ones((D,)),
-            "lm_head": w((D, V), D)}
+    def ones(name):
+        keep(name, torch.ones(shapes[name], device=device, dtype=dtype))
+
+    # The draw order fixes the weights a seed gives.
+    w("embed", D)
+    for name, fan_in in (("wq", D), ("wk", D), ("wv", D),
+                         ("wo", cfg.n_heads * cfg.head_dim), ("w1", D), ("w2", F_),
+                         ("w3", D)):
+        w(f"layers.{name}", fan_in)
+    for name in ("ln_attn", "ln_mlp") + (("q_norm", "k_norm") if cfg.qk_norm else ()):
+        ones(f"layers.{name}")
+    if cfg.n_experts:
+        w("layers.router", D)
+    ones("final_norm")
+    w("lm_head", D)
+    if layout is not None:
+        return par.from_rank_lists(flat, layout)
+    return nested_params(flat)
 
 
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
@@ -108,10 +120,10 @@ def flat_params(params: Params) -> dict[str, torch.Tensor]:
 
 def nested_params(flat: dict[str, torch.Tensor]) -> Params:
     """The inverse of ``flat_params``."""
-    params: Params = {"layers": {}}
+    params: Params = {}
     for name, t in flat.items():
         if name.startswith("layers."):
-            params["layers"][name[len("layers."):]] = t
+            params.setdefault("layers", {})[name[len("layers."):]] = t
         else:
             params[name] = t
     return params
@@ -135,17 +147,24 @@ def qk_normed(cfg: ModelConfig, lp: Params, q: torch.Tensor,
     return q, k
 
 
-def _moe_ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+def _moe_ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor,
+             ep_rank: int = 0, ep: int = 1) -> torch.Tensor:
     """Top-k mixture-of-experts FFN (Mixtral-style), dense over experts: every
     expert runs on every token and the one-hot routing weights zero the rest.
     Rounds where the JAX einsums do: router logits in h's dtype then f32,
     expert products and the weights (a one-hot in h's dtype times the gates
-    cast to it) in h's dtype. h [..., D] -> [..., D]."""
+    cast to it) in h's dtype. h [..., D] -> [..., D]. Under ``ep`` the
+    layer holds experts ``[ep_rank * E/ep, (ep_rank + 1) * E/ep)`` and the
+    result is their part of the sum (the router is replicated, so every rank
+    routes alike)."""
     D = h.shape[-1]
     x = h.reshape(-1, D)
     gates, top_idx = top_k_gates((x @ lp["router"]).float(), cfg.experts_per_token)
     onehot = F.one_hot(top_idx, cfg.n_experts).to(h.dtype)       # [T, k, E]
     weights = torch.einsum("tke,tk->te", onehot, gates.to(h.dtype))
+    if ep > 1:
+        local = cfg.n_experts // ep
+        weights = weights[:, ep_rank * local:(ep_rank + 1) * local]
     # [T, D] @ [E, D, F] broadcasts to [E, T, F] without copying the weights.
     up = torch.matmul(x, lp["w1"])
     gate = torch.matmul(x, lp["w3"])
@@ -153,39 +172,102 @@ def _moe_ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
     return torch.einsum("etd,te->td", out, weights).reshape(h.shape)
 
 
-def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor, ep_rank: int = 0,
+         ep: int = 1) -> torch.Tensor:
     """Dense or MoE SwiGLU FFN, dispatched on the layer's parameters. Both
     MoE forms take any leading shape, so the JAX decode squeeze ([B, D] ->
-    [B, 1, D]) has no counterpart here."""
+    [B, 1, D]) has no counterpart here. On a shard the result is that
+    rank's partial sum."""
     if "router" in lp:
         if cfg.moe_impl == "grouped":
             return moe_ffn_grouped(lp, h, cfg.n_experts, cfg.experts_per_token)
-        return _moe_ffn(cfg, lp, h)
+        return _moe_ffn(cfg, lp, h, ep_rank, ep)
     return (F.silu(h @ lp["w1"]) * (h @ lp["w3"])) @ lp["w2"]
 
 
 def _qkv(cfg: ModelConfig, lp: Params, x: torch.Tensor, cos: torch.Tensor,
          sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Attention-norm, projections, QK-norm and RoPE for x [B, S, D]."""
+    """Attention-norm, projections, QK-norm and RoPE for x [B, S, D], over
+    the heads the layer's projections hold (all, or a tp rank's)."""
     B, S, _ = x.shape
     Dh = cfg.head_dim
     h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(B, S, cfg.n_heads, Dh)
-    k = (h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, Dh)
-    v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, Dh)
+    q = (h @ lp["wq"]).reshape(B, S, -1, Dh)
+    k = (h @ lp["wk"]).reshape(B, S, -1, Dh)
+    v = (h @ lp["wv"]).reshape(B, S, -1, Dh)
     q, k = qk_normed(cfg, lp, q, k)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _finish_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                  attn: torch.Tensor) -> torch.Tensor:
-    x = x + attn.reshape(*x.shape[:-1], -1) @ lp["wo"]
-    h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-    return x + _ffn(cfg, lp, h)
+class _Model:
+    """The parameters as ranks (one for a plain dict) with per-layer views,
+    and the sharded model's three collective steps; ``x`` (the residual
+    stream) lives on the first rank's device."""
+
+    def __init__(self, params):
+        if isinstance(params, par.ShardedParams):
+            self.layout, shards = params.layout, params.shards
+        else:
+            self.layout, shards = par.single_layout(params), [params]
+        self.shards = shards
+        self.tp, self.ep = self.layout.tp, self.layout.ep
+        self.dev = self.layout.devices[0]
+        self.layers = list(zip(*(layer_params(p) for p in shards)))  # [L][rank]
+
+    def tp_shard(self, t: int) -> Params:
+        return self.shards[t * self.ep]
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings: a masked lookup in each vocab shard, summed
+        (the other shards add exact zeros)."""
+        if self.tp == 1:
+            return self.shards[0]["embed"][tokens.long()]
+        parts = []
+        for t in range(self.tp):
+            emb = self.tp_shard(t)["embed"]
+            n = emb.shape[0]
+            ids = tokens.long().to(emb.device) - t * n
+            ok = (ids >= 0) & (ids < n)
+            rows = emb[ids.clamp(0, n - 1)]
+            parts.append(torch.where(ok[..., None], rows, torch.zeros_like(rows)))
+        return par.reduce_sum(parts, self.dev)
+
+    def layer(self, cfg: ModelConfig, lps, x: torch.Tensor, attend) -> torch.Tensor:
+        """One decoder layer: ``attend(t, lp, x_t)`` gives tp rank t's
+        attention output over its heads; one sum after ``wo``, one after the
+        FFN (``w2``)."""
+        parts = []
+        for t in range(self.tp):
+            lp = lps[t * self.ep]
+            xt = x.to(self.layout.tp_device(t))
+            attn = attend(t, lp, xt)
+            parts.append(attn.reshape(*xt.shape[:-1], -1) @ lp["wo"])
+        x = x + par.reduce_sum(parts, self.dev)
+        h = rms_norm(x, lps[0]["ln_mlp"], cfg.norm_eps)
+        return x + par.reduce_sum(
+            [_ffn(cfg, lps[r], h.to(self.layout.devices[r]), e, self.ep)
+             for r, _, e in self.layout.ranks()], self.dev)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits of final-norm hidden states, gathered over the vocab
+        shards."""
+        return par.gather_last(
+            [(x.to(self.layout.tp_device(t)) @ self.tp_shard(t)["lm_head"]).float()
+             for t in range(self.tp)], self.dev)
+
+
+def _page_list(pages) -> list[torch.Tensor]:
+    return list(pages) if isinstance(pages, (list, tuple)) else [pages]
+
+
+def lm_logits(params, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits of final-norm hidden states ``x`` (in the params' dtype),
+    on the first rank's device."""
+    return _Model(params).logits(x)
 
 
 def forward(
-    params: Params,
+    params,
     cfg: ModelConfig,
     tokens: torch.Tensor,                     # [B, S] int
     positions: torch.Tensor | None = None,    # [B, S]
@@ -195,37 +277,53 @@ def forward(
     kv_valid: torch.Tensor | None = None,     # [B, S] padding mask
     mm_embeds: torch.Tensor | None = None,    # [B, M, D] multimodal vectors
     mm_positions: torch.Tensor | None = None,  # [B, M] target positions
-) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
+) -> tuple[torch.Tensor, tuple | None]:
     """Full-sequence forward (prefill). Returns (logits [B, S, V] f32 — or
     the final-norm hidden states [B, S, D] as f32 with ``want_hidden`` —,
-    (K, V) each [L, B, S, Hkv, Dh] if ``want_kv``).
+    (K, V) each [L, B, S, Hkv, Dh] if ``want_kv``; with ``ShardedParams``
+    K and V are lists over the tp ranks of [L, B, S, Hkv/tp, Dh]).
 
     Multimodal prefill (E/P/D): ``mm_embeds`` replace the token embeddings
     at ``mm_positions`` (encoder outputs spliced in at placeholder tokens),
     cast to the embeddings' dtype; a position ``>= S`` (a caller's padding)
     is dropped, as the JAX scatter's ``mode="drop"`` drops it."""
+    m = _Model(params)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    x = params["embed"][tokens.long()]
+    x = m.embed(tokens)
     if mm_embeds is not None:
         x = _splice(x, mm_embeds, mm_positions)
-    ks, vs = [], []
-    for lp in layer_params(params):
-        q, k, v = _qkv(cfg, lp, x, cos, sin)
-        attn = causal_attention(q, k, v, q_positions=positions,
-                                kv_positions=positions, kv_valid=kv_valid)
-        x = _finish_layer(cfg, lp, x, attn)
+    per_tp = []
+    for t in range(m.tp):
+        dev = m.layout.tp_device(t)
+        per_tp.append((cos.to(dev), sin.to(dev), positions.to(dev),
+                       None if kv_valid is None else kv_valid.to(dev)))
+    ks: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
+    vs: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
+
+    def attend(t, lp, xt):
+        c, s_, pos, valid = per_tp[t]
+        q, k, v = _qkv(cfg, lp, xt, c, s_)
         if want_kv:
-            ks.append(k)
-            vs.append(v)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    kv = (torch.stack(ks), torch.stack(vs)) if want_kv else None
+            ks[t].append(k)
+            vs[t].append(v)
+        return causal_attention(q, k, v, q_positions=pos, kv_positions=pos,
+                                kv_valid=valid)
+
+    for lps in m.layers:
+        x = m.layer(cfg, lps, x, attend)
+    x = rms_norm(x, m.shards[0]["final_norm"], cfg.norm_eps)
+    kv = None
+    if want_kv:
+        kv = ([torch.stack(k) for k in ks], [torch.stack(v) for v in vs])
+        if not isinstance(params, par.ShardedParams):
+            kv = (kv[0][0], kv[1][0])
     if want_hidden:
         return x.float(), kv
-    return (x @ params["lm_head"]).float(), kv
+    return m.logits(x), kv
 
 
 def _splice(x: torch.Tensor, mm_embeds: torch.Tensor,
@@ -236,25 +334,25 @@ def _splice(x: torch.Tensor, mm_embeds: torch.Tensor,
     from the end, as in JAX) write a scratch row past the end, sliced off
     afterwards: no host sync to filter them."""
     B, S, D = x.shape
-    pos = mm_positions.long()
+    pos = mm_positions.long().to(x.device)
     pos = torch.where(pos < 0, pos + S, pos)
     pos = torch.where((pos >= 0) & (pos < S), pos, torch.full_like(pos, S))
     rows = torch.arange(B, device=x.device)[:, None].expand_as(pos)
     out = torch.cat([x, x.new_zeros(B, 1, D)], dim=1)
-    out[rows, pos] = mm_embeds.to(x.dtype)
+    out[rows, pos] = mm_embeds.to(x.device, x.dtype)
     return out[:, :S]
 
 
 def decode_step(
-    params: Params,
+    params,
     cfg: ModelConfig,
     tokens: torch.Tensor,        # [B] current input token per sequence
     positions: torch.Tensor,     # [B] 0-based position of that token
-    k_pages: torch.Tensor,       # [L, N_blocks, block, Hkv, Dh]
-    v_pages: torch.Tensor,
+    k_pages,                     # [L, N_blocks, block, Hkv, Dh] (a list per tp rank)
+    v_pages,
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     paged_attention: Callable[..., torch.Tensor] = paged_decode_attention_cuda,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, Any, Any]:
     """One decode step with paged KV; returns (logits [B, V] f32, k_pages,
     v_pages), the pages updated in place.
 
@@ -265,9 +363,13 @@ def decode_step(
     block table (a fused decode chunk keeps stepping a finished lane) writes
     through the table's last entry, clamped explicitly here (JAX clamps the
     gather index silently); the kernel bounds its page walk the same way.
+    With ``ShardedParams`` each tp rank attends over its own pages (one
+    kernel launch per rank and layer).
     """
+    m = _Model(params)
+    kps, vps = _page_list(k_pages), _page_list(v_pages)
     B = tokens.shape[0]
-    block = k_pages.shape[2]
+    block = kps[0].shape[2]
     W = block_tables.shape[1]
     Dh = cfg.head_dim
     positions = positions.to(torch.int32)
@@ -276,49 +378,63 @@ def decode_step(
     lane = torch.arange(B, device=tokens.device)
     blk_idx = block_tables[lane, (positions // block).clamp(max=W - 1).long()].long()
     slot = (positions % block).long()
+    per_tp = []
+    for t in range(m.tp):
+        dev = kps[t].device
+        per_tp.append((cos[:, None].to(dev), sin[:, None].to(dev),
+                       block_tables.to(dev), seq_lens.to(dev)))
 
-    x = params["embed"][tokens.long()][:, None]              # [B, 1, D]
-    k_cur, v_cur = [], []
-    for li, lp in enumerate(layer_params(params)):
-        q, k, v = _qkv(cfg, lp, x, cos[:, None], sin[:, None])
-        q, k, v = q[:, 0], k[:, 0], v[:, 0]                  # [B, H(kv), Dh]
-        attn = paged_attention(q, k_pages[li], v_pages[li], block_tables,
-                               seq_lens, k, v)
-        x = _finish_layer(cfg, lp, x, attn[:, None])
-        k_cur.append(k)
-        v_cur.append(v)
-    k_pages[:, blk_idx, slot] = torch.stack(k_cur).to(k_pages.dtype)
-    v_pages[:, blk_idx, slot] = torch.stack(v_cur).to(v_pages.dtype)
+    x = m.embed(tokens)[:, None]                             # [B, 1, D]
+    k_cur: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
+    v_cur: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
+    for li, lps in enumerate(m.layers):
+        def attend(t, lp, xt):
+            c, s_, tab, lens = per_tp[t]
+            q, k, v = _qkv(cfg, lp, xt, c, s_)
+            q, k, v = q[:, 0], k[:, 0], v[:, 0]              # [B, H(kv), Dh]
+            attn = paged_attention(q, kps[t][li], vps[t][li], tab, lens, k, v)
+            k_cur[t].append(k)
+            v_cur[t].append(v)
+            return attn[:, None]
 
-    x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), k_pages, v_pages
+        x = m.layer(cfg, lps, x, attend)
+    for t in range(m.tp):
+        dev = kps[t].device
+        bi, si = blk_idx.to(dev), slot.to(dev)
+        kps[t][:, bi, si] = torch.stack(k_cur[t]).to(kps[t].dtype)
+        vps[t][:, bi, si] = torch.stack(v_cur[t]).to(vps[t].dtype)
+
+    x = rms_norm(x[:, 0], m.shards[0]["final_norm"], cfg.norm_eps)
+    return m.logits(x), k_pages, v_pages
 
 
 def prefill_with_prefix(
-    params: Params,
+    params,
     cfg: ModelConfig,
     tokens: torch.Tensor,        # [1, S] suffix tokens (may be padded)
     suffix_len: torch.Tensor,    # [1] valid suffix tokens
     prefix_len: torch.Tensor,    # [1] tokens already present in the pages
-    k_pages: torch.Tensor,       # [L, N, block, Hkv, Dh]
-    v_pages: torch.Tensor,
+    k_pages,                     # [L, N, block, Hkv, Dh] (a list per tp rank)
+    v_pages,
     block_table_row: torch.Tensor,  # [1, max_blocks] full table (KV scatter)
     prior_table_row: torch.Tensor | None = None,  # [1, P] gather window
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, Any, Any]:
     """Prefill continuing from cached prefix KV (automatic prefix caching).
 
     The suffix attends to the cached prefix gathered from the pages plus
     itself causally; its KV is written into the pages at prefix_len + t.
     Returns (last-token logits [1, V] f32, k_pages, v_pages), pages updated
     in place."""
+    m = _Model(params)
+    kps, vps = _page_list(k_pages), _page_list(v_pages)
     B, S = tokens.shape
     assert B == 1
-    block = k_pages.shape[2]
+    block = kps[0].shape[2]
     if prior_table_row is None:
         prior_table_row = block_table_row
     W = block_table_row.shape[1]
     T = prior_table_row.shape[1] * block
-    Dh, Hkv = cfg.head_dim, cfg.n_kv_heads
+    Dh = cfg.head_dim
     dev = tokens.device
     suffix_len = suffix_len.to(dev)
     prefix_len = prefix_len.to(dev)
@@ -332,20 +448,30 @@ def prefill_with_prefix(
     kv_positions = torch.cat([prior_pos, positions], dim=1)
     kv_valid = torch.cat([prior_valid, suffix_valid], dim=1)
     prior = prior_table_row[0].long()
+    per_tp = []
+    for t in range(m.tp):
+        d = kps[t].device
+        per_tp.append(tuple(a.to(d) for a in (cos, sin, positions, kv_positions,
+                                              kv_valid, prior)))
 
-    x = params["embed"][tokens.long()]
-    k_new, v_new = [], []
-    for li, lp in enumerate(layer_params(params)):
-        q, k, v = _qkv(cfg, lp, x, cos, sin)
-        k_prior = k_pages[li][prior].reshape(1, T, Hkv, Dh)
-        v_prior = v_pages[li][prior].reshape(1, T, Hkv, Dh)
-        attn = causal_attention(q, torch.cat([k_prior, k], dim=1),
-                                torch.cat([v_prior, v], dim=1),
-                                q_positions=positions,
-                                kv_positions=kv_positions, kv_valid=kv_valid)
-        x = _finish_layer(cfg, lp, x, attn)
-        k_new.append(k[0])
-        v_new.append(v[0])
+    x = m.embed(tokens)
+    k_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
+    v_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
+    for li, lps in enumerate(m.layers):
+        def attend(t, lp, xt):
+            c, s_, pos, kv_pos, valid, pr = per_tp[t]
+            q, k, v = _qkv(cfg, lp, xt, c, s_)
+            Hkv = k.shape[2]
+            k_prior = kps[t][li][pr].reshape(1, T, Hkv, Dh)
+            v_prior = vps[t][li][pr].reshape(1, T, Hkv, Dh)
+            k_new[t].append(k[0])
+            v_new[t].append(v[0])
+            return causal_attention(q, torch.cat([k_prior, k], dim=1),
+                                    torch.cat([v_prior, v], dim=1),
+                                    q_positions=pos, kv_positions=kv_pos,
+                                    kv_valid=valid)
+
+        x = m.layer(cfg, lps, x, attend)
 
     # Scatter suffix KV at offset positions (padding -> trash block 0).
     tgt = prefix_len[0] + t_idx
@@ -353,31 +479,36 @@ def prefill_with_prefix(
     table_blk = block_table_row[0, (tgt // block).clamp(max=W - 1).long()]
     blk_for_t = torch.where(valid, table_blk, torch.zeros_like(table_blk)).long()
     slot_for_t = torch.where(valid, tgt % block, torch.zeros_like(tgt)).long()
-    k_pages[:, blk_for_t, slot_for_t] = torch.stack(k_new).to(k_pages.dtype)
-    v_pages[:, blk_for_t, slot_for_t] = torch.stack(v_new).to(v_pages.dtype)
+    for t in range(m.tp):
+        d = kps[t].device
+        bi, si = blk_for_t.to(d), slot_for_t.to(d)
+        kps[t][:, bi, si] = torch.stack(k_new[t]).to(kps[t].dtype)
+        vps[t][:, bi, si] = torch.stack(v_new[t]).to(vps[t].dtype)
 
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, m.shards[0]["final_norm"], cfg.norm_eps)
     last = x[0, (suffix_len[0] - 1).long()][None]
-    logits = (last @ params["lm_head"]).float()
-    return logits, k_pages, v_pages
+    return m.logits(last), k_pages, v_pages
 
 
 def write_prefill_kv(
-    k_pages: torch.Tensor,       # [L, N, block, Hkv, Dh]
-    v_pages: torch.Tensor,
-    k_new: torch.Tensor,         # [L, B, S, Hkv, Dh] from forward(want_kv=True)
-    v_new: torch.Tensor,
+    k_pages,                     # [L, N, block, Hkv, Dh] (a list per tp rank)
+    v_pages,
+    k_new,                       # [L, B, S, Hkv, Dh] from forward(want_kv=True)
+    v_new,
     block_tables: torch.Tensor,  # [B, max_blocks]
     seq_lens: torch.Tensor,      # [B] valid prompt tokens
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Write freshly prefilled KV rows into their pages, in place.
+) -> tuple[Any, Any]:
+    """Write freshly prefilled KV rows into their pages, in place (per tp
+    rank where pages and KV are lists).
 
     Token t of sequence b lands in block block_tables[b, t // block] at slot
     t % block; padding tokens (t >= seq_lens[b]) go to the trash block 0."""
-    L, B, S, Hkv, Dh = k_new.shape
-    block = k_pages.shape[2]
+    kps, vps = _page_list(k_pages), _page_list(v_pages)
+    kns, vns = _page_list(k_new), _page_list(v_new)
+    L, B, S, _, Dh = kns[0].shape
+    block = kps[0].shape[2]
     W = block_tables.shape[1]
-    dev = k_pages.device
+    dev = block_tables.device
     t = torch.arange(S, dtype=torch.int32, device=dev)
     blk_for_t = block_tables[:, (t // block).clamp(max=W - 1).long()]  # [B, S]
     valid = t[None, :] < seq_lens.to(dev)[:, None]
@@ -386,6 +517,9 @@ def write_prefill_kv(
                              torch.zeros((B, S), dtype=torch.int32, device=dev))
     bidx = blk_for_t.reshape(-1).long()
     sidx = slot_for_t.reshape(-1).long()
-    k_pages[:, bidx, sidx] = k_new.reshape(L, B * S, Hkv, Dh).to(k_pages.dtype)
-    v_pages[:, bidx, sidx] = v_new.reshape(L, B * S, Hkv, Dh).to(v_pages.dtype)
+    for kp, vp, kn, vn in zip(kps, vps, kns, vns):
+        Hkv = kn.shape[3]
+        bi, si = bidx.to(kp.device), sidx.to(kp.device)
+        kp[:, bi, si] = kn.reshape(L, B * S, Hkv, Dh).to(kp.device, kp.dtype)
+        vp[:, bi, si] = vn.reshape(L, B * S, Hkv, Dh).to(vp.device, vp.dtype)
     return k_pages, v_pages

@@ -13,7 +13,9 @@ the partials. bf16 runs its QK and PV products on the tensor cores
 (``mma.sync``), f32 on CUDA cores. This wrapper picks ``S`` from shapes and
 allocates the f32 workspace; a per-device ticket buffer, zeroed once and
 left zero by every launch, tells a row's CTAs which one finishes last (so
-calls are serialised on one stream, as the engine makes them). Design and
+calls are serialised on one stream, as the engine makes them; two tp ranks
+laid on one device launch in turn on its current stream, so they share the
+buffer safely). Design and
 what is left are in the source's header.
 
 On a CPU tensor the wrapper computes the plain version

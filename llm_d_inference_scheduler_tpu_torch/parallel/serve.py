@@ -1,0 +1,191 @@
+"""Tensor- and expert-parallel serving: shards on devices, and the two
+collectives of the sharded model.
+
+Port of ``llm_d_inference_scheduler_tpu/parallel/serve.py``. The JAX engine
+runs one program over a ``(dp, tp, ep)`` mesh and lets XLA insert the sums.
+Here one process drives every shard, as the JAX single controller does:
+
+- ``ServeLayout`` names the device of each rank ``r = t * ep + e`` (the
+  mesh's ``(tp, ep)`` order). An explicit device list may name one device
+  more than once: the CPU tests lay every shard on ``"cpu"``, and one card
+  can hold two shards, so the code that many cards would run is checked on
+  one.
+- Attention runs once per ``tp`` rank, on the device of its first ``ep``
+  rank, over that rank's KV pages ``[L, N, block, Hkv/tp, D]`` (the JAX
+  ``KV_PAGE_SPEC``). The ``ep`` ranks of a ``tp`` rank share those pages:
+  the JAX mesh keeps an identical copy on each, which one controller has
+  no reason to compute twice.
+- ``reduce_sum`` adds the row-parallel partials of every rank in rank
+  order on one device (the first rank's, where the residual stream
+  lives); consumers copy the sum back out to their own devices. Where the
+  shards share a device, those copies do nothing.
+- ``gather_last`` joins vocab-sharded logits, so sampling and its
+  generator run once, as on one device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterable
+
+import torch
+
+from ..utils.device import resolve_device
+from .shardings import param_splits, split_tensor
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeLayout:
+    devices: tuple[torch.device, ...]  # rank r = t * ep + e
+    tp: int = 1
+    ep: int = 1
+
+    def ranks(self) -> Iterable[tuple[int, int, int]]:
+        """(rank, tp rank, ep rank) in rank order."""
+        return ((r, r // self.ep, r % self.ep) for r in range(len(self.devices)))
+
+    def tp_device(self, t: int) -> torch.device:
+        """The device that runs ``tp`` rank ``t``'s attention and holds its
+        KV pages."""
+        return self.devices[t * self.ep]
+
+
+@dataclasses.dataclass
+class ShardedParams:
+    """The model's parameters as one dict per rank (``param_shapes``' keys,
+    each tensor that rank's shard)."""
+    layout: ServeLayout
+    shards: list[Params]
+
+
+def validate_tp(cfg, tp: int, ep: int = 1) -> None:
+    """TP must divide every sharded dim (kv heads bound the paged-KV shard);
+    EP must divide the expert count."""
+    for dim, name in ((cfg.n_kv_heads, "n_kv_heads"), (cfg.n_heads, "n_heads"),
+                      (cfg.d_ff, "d_ff"), (cfg.vocab_size, "vocab_size")):
+        if dim % tp:
+            raise ValueError(f"tp={tp} does not divide {name}={dim}")
+    if ep > 1:
+        if not cfg.n_experts:
+            raise ValueError("ep>1 requires an MoE config (n_experts > 0)")
+        if cfg.n_experts % ep:
+            raise ValueError(f"ep={ep} does not divide n_experts={cfg.n_experts}")
+
+
+def make_serve_layout(devices=None, tp: int = 1, ep: int = 1) -> ServeLayout:
+    """The layout of ``tp * ep`` ranks on ``devices`` (rank order). By
+    default the first ``tp * ep`` CUDA devices; an explicit list must have
+    one entry per rank and may repeat a device."""
+    if tp < 1 or ep < 1:
+        raise ValueError(f"tp={tp} and ep={ep} must be >= 1")
+    n = tp * ep
+    if devices is None:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n:
+            raise ValueError(f"tp*ep={tp}*{ep} needs {n} CUDA devices, found "
+                             f"{have}; pass an explicit device list")
+        devices = [f"cuda:{i}" for i in range(n)]
+    devices = list(devices)
+    if len(devices) != n:
+        raise ValueError(f"{len(devices)} devices given for tp*ep={tp}*{ep}: "
+                         "name one device per rank (a device may repeat)")
+    return ServeLayout(tuple(_indexed(resolve_device(d)) for d in devices), tp, ep)
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` as the current CUDA device's index, the name a tensor's
+    ``device`` carries."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def single_layout(params: Params) -> ServeLayout:
+    return ServeLayout((params["embed"].device,))
+
+
+def rank_views(name: str, t: torch.Tensor, cfg, layout: ServeLayout
+               ) -> list[torch.Tensor]:
+    """Parameter ``name``'s shard of ``t`` for every rank: views, no copy."""
+    split = param_splits(cfg)[name]
+    return [split_tensor(t, split, tr, layout.tp, er, layout.ep)
+            for _, tr, er in layout.ranks()]
+
+
+def split_to_ranks(name: str, t: torch.Tensor, cfg, layout: ServeLayout
+                   ) -> list[torch.Tensor]:
+    """Parameter ``name``'s shard for every rank, each on its rank's device.
+    Where every rank shares one device, a shard on ``t``'s device is a view
+    of ``t``; across devices each shard owns its memory, so ``t`` can go."""
+    share = len(set(layout.devices)) == 1
+    return [s if share and s.device == dev
+            else s.clone() if s.device == dev else s.to(dev)
+            for s, dev in zip(rank_views(name, t, cfg, layout), layout.devices)]
+
+
+def from_rank_lists(flat: dict[str, list[torch.Tensor]], layout: ServeLayout
+                    ) -> ShardedParams:
+    """``ShardedParams`` from flat name -> per-rank tensors."""
+    shards: list[Params] = []
+    for r in range(len(layout.devices)):
+        p: Params = {"layers": {}}
+        for name, parts in flat.items():
+            if name.startswith("layers."):
+                p["layers"][name[len("layers."):]] = parts[r]
+            else:
+                p[name] = parts[r]
+        shards.append(p)
+    return ShardedParams(layout, shards)
+
+
+def shard_params(params: Params, cfg, layout: ServeLayout) -> ShardedParams:
+    """Split full parameters into ``layout``'s shards, one tensor at a
+    time. On a device that already holds the full tensor a shard is a view
+    of it: a sharded engine and a single-device one can share weights."""
+    validate_tp(cfg, layout.tp, layout.ep)
+    flat = {k: v for k, v in params.items() if k != "layers"}
+    flat |= {f"layers.{k}": v for k, v in params["layers"].items()}
+    return from_rank_lists({name: split_to_ranks(name, t, cfg, layout)
+                            for name, t in flat.items()}, layout)
+
+
+def alloc_sharded_pages(cfg, layout: ServeLayout, n_blocks: int,
+                        dtype: torch.dtype) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+    """Zeroed K and V pages per ``tp`` rank, ``[L, N, block, Hkv/tp, D]`` on
+    the rank's attention device."""
+    shape = (cfg.n_layers, n_blocks, cfg.kv_block_size,
+             cfg.n_kv_heads // layout.tp, cfg.head_dim)
+    k = [torch.zeros(shape, dtype=dtype, device=layout.tp_device(t))
+         for t in range(layout.tp)]
+    v = [torch.zeros(shape, dtype=dtype, device=layout.tp_device(t))
+         for t in range(layout.tp)]
+    return k, v
+
+
+def reduce_sum(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The sum over ranks of row-parallel partials, added in rank order on
+    ``device``. One part is returned as it is."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = out + p.to(device)
+    return out
+
+
+def gather_last(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """Vocab-sharded values joined along the last axis on ``device``."""
+    if len(parts) == 1:
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts], dim=-1)
+
+
+def join_kv_heads(parts: list[torch.Tensor]) -> torch.Tensor:
+    """Per-``tp``-rank pages ``[..., Hkv/tp, D]`` (host tensors) as the
+    single-device layout ``[..., Hkv, D]``: the ``/kv`` wire's."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+def split_kv_heads(t: torch.Tensor, tp: int) -> list[torch.Tensor]:
+    """The inverse of ``join_kv_heads``."""
+    return list(t.chunk(tp, dim=-2)) if tp > 1 else [t]

@@ -64,6 +64,46 @@ def test_paged_decode_kernel_matches_plain(gpu, seq_lens, H, Hkv, D, dtype):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv", [(16, 4), (8, 2), (4, 1)])
+def test_paged_decode_kernel_at_local_heads(gpu, H, Hkv, dtype):
+    """One tp rank's heads of llama3-8b (tp = 2, 4, 8), head_dim 128."""
+    args = _case(gpu, [1, 17, 33, 100, 128, 5], H, Hkv, 128, dtype, maxB=16)
+    out = paged_attention.paged_decode_attention_cuda(*args)
+    torch.cuda.synchronize()
+    ref = attention.paged_decode_attention(*args)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("name,tp,ep", [("tiny", 2, 1), ("tiny-moe", 2, 2)])
+def test_sharded_decode_step_on_one_card(gpu, name, tp, ep):
+    """tp x ep ranks laid on the one card: the decode step launches K1 once
+    per tp rank and layer and agrees with the single-device step in f32."""
+    from llm_d_inference_scheduler_tpu_torch.parallel import serve as par
+
+    cfg = dataclasses.replace(configs.get_config(name), dtype="float32")
+    params = llama.init_params(cfg, "cuda", generator=gpu)
+    sp = par.shard_params(params, cfg, par.make_serve_layout(["cuda:0"] * (tp * ep), tp, ep))
+    B, maxB = 3, 4
+    shape = (cfg.n_layers, 1 + B * maxB, cfg.kv_block_size, cfg.n_kv_heads, cfg.head_dim)
+    kp = torch.randn(shape, generator=gpu, device="cuda")
+    vp = torch.randn(shape, generator=gpu, device="cuda")
+    tables = torch.arange(1, 1 + B * maxB, dtype=torch.int32, device="cuda").reshape(B, maxB)
+    tokens = torch.tensor([5, 9, 300], device="cuda")
+    positions = torch.tensor([37, 3, 50], dtype=torch.int32, device="cuda")
+    ref, rk, rv = llama.decode_step(params, cfg, tokens, positions, kp.clone(), vp.clone(),
+                                    tables)
+    ks = [t.contiguous() for t in par.split_kv_heads(kp.clone(), tp)]
+    vs = [t.contiguous() for t in par.split_kv_heads(vp.clone(), tp)]
+    before = paged_attention.launches
+    out, _, _ = llama.decode_step(sp, cfg, tokens, positions, ks, vs, tables)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + tp * cfg.n_layers
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(par.join_kv_heads(ks)[:, 1:], rk[:, 1:], atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("name", ["tiny", "tiny-qwen"])
 def test_decode_step_kernel_matches_plain(gpu, name):
     cfg = dataclasses.replace(configs.get_config(name), dtype="float32")
