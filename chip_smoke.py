@@ -9,9 +9,10 @@ Phases (any failure exits non-zero):
                paged decode attention, K2 grouped-expert FFN), in parallel
   3. kernels   K1 (one launch; mma.sync in bf16) against its plain PyTorch
                version on the card, at llama3-8b shapes (and head_dim 64)
-               and at one tp rank's heads (H/Hkv 16/4, 8/2, 4/1), bf16 and
-               f32, with times of the kernel, the plain version and a
-               library yardstick at the full and at each local shape
+               and at one tp rank's heads (H/Hkv 16/4, 8/2, 4/1), and at
+               Llama-3-70B's heads (64/8) and one of its tp=2 ranks' (32/4),
+               bf16 and f32, with times of the kernel, the plain version and
+               a library yardstick at the full and at each such shape
   4. decode    one full-width llama3-8b decode_step in bf16 (random weights),
                kernel against plain paged attention; the same on the first
                two layers in f32, with a tight tolerance
@@ -96,6 +97,25 @@ Phases (any failure exits non-zero):
   10b. tls    one https completion against a tp=2 engine served with
                --cert-path (a certificate from the cryptography package or
                the openssl CLI), one chaos http503 and a completion after it
+  11. pp      pipeline-parallel serving from the server's parser, every
+               stage on the one card (no pipeline speed): llama3-8b at full
+               width and depth with --pp-size 2, phase 5's four requests
+               (batch bucket 4: the lane-group interleave) and one
+               single-lane request (the broadcast ring) against a pp=1
+               engine on the same weights, greedy tokens equal up to
+               reported near-ties, the last-position logits within 5e-2 of
+               the largest, K1 tp x L a ring step and pp x tp x L an
+               interleave step; a P/D handoff pp=2 -> tp=1 and tp=1 -> pp=2
+               (pages per (stage, kv-head) shard bitwise); Llama-3-70B at
+               full width cut to 16 of 80 layers with --pp-size 4 and with
+               --pp-size 2 --tp-size 2, both views of one set of weights,
+               against pp=1; Mixtral (16 layers) with --pp-size 2 and the
+               grouped FFN against pp=1 grouped (K2 on wgmma, L launches
+               per prefill and per layer stack a step runs), and with
+               --pp-size 2 --ep-size 2 dense against pp=1 dense
+  12. sim     the CPU simulator from the parser (--backend sim --platform
+               cpu): one completion, one streamed request, /health and
+               /metrics, and no kernel launch
 The lines before the last carry the card's name and power limit and a JSON
 object listing each kernel once for every serving path that launches it
 (the P/D decode engine's K1 launches as path "llama3-8b P/D decode", the
@@ -104,7 +124,11 @@ launches of the Mixtral /v1/embeddings calls as path
 "mixtral-8x7b-16l embeddings", the checkpoint phase's as "ckpt
 llama3-8b-8l serve" and "ckpt mixtral-8x7b-2l serve", phase 10's as
 "llama3-8b tp2 serve" (timed at one rank's heads, 16/4), "llama3-8b tp2
-P/D decode (tp=1)" and "mixtral-8x7b-16l ep2 serve"), with that path's launch count (K2's entry also by kernel path, and its
+P/D decode (tp=1)" and "mixtral-8x7b-16l ep2 serve", phase 11's as
+"llama3-8b pp2 serve", "llama3-8b pp2 P/D decode", "llama3-70b-16l pp4
+serve" (timed at 64/8), "llama3-70b-16l pp2tp2 serve" (timed at 32/4),
+"mixtral-8x7b-16l pp2 serve" (K1 and K2) and "mixtral-8x7b-16l pp2ep2
+serve"), with that path's launch count (K2's entry also by kernel path, and its
 prefill-size times under prefill_*); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -180,6 +204,8 @@ MOE_ROUTE_TIE_STEPS = 8
 MODEL = "llama3-8b"
 # llama3-8b's (H, Hkv) on one tp rank at tp = 2, 4 and 8.
 LOCAL_HEADS = [(16, 4), (8, 2), (4, 1)]
+# Llama-3-70B's (H, Hkv), GQA group 8, and one tp=2 rank's (phase 11).
+PP_HEADS = [(64, 8), (32, 4)]
 MOE_MODEL = "mixtral-8x7b"
 MOE_LAYERS = 16   # of 32: 93.4 GB in bf16 do not fit in 80 GB; 16 take 47 GB
 MOE_SERVED = "mixtral-8x7b-16l"
@@ -286,10 +312,27 @@ def check_attention(name: str, args: tuple) -> float:
     return max_err
 
 
-def phase_kernels(serve_seq_lens: list[int]) -> dict:
+def lane_groups(seq_lens: list[int], B: int) -> list[list[int]]:
+    """``seq_lens`` cut into contiguous groups of B lanes: the lane groups
+    of a pp interleave at B = bucket / pp (``pp_serve.interleaved_chunk``
+    slices its batch so), or the lanes of a ring step at a smaller bucket."""
+    return [seq_lens[i:i + B] for i in range(0, len(seq_lens), B)]
+
+
+# K1's timed shapes, by kernels-line key: (H, Hkv, lanes per launch). B=4
+# is the serve bucket (pp=1, tp and ep paths); the pp paths launch mostly
+# at their interleave's groups: llama3-8b and Mixtral pp=2 at 32/8 B=2,
+# Llama-3-70B pp=4 at 64/8 B=1, its pp2tp2 at 32/4 B=2; "pd" is the P/D
+# decode lane at 32/8 B=1 (the broadcast ring of one request).
+K1_TIMED = [(32, 8, 4)] + [(H, Hkv, 4) for H, Hkv in LOCAL_HEADS + PP_HEADS] + [
+    (32, 8, 2), (64, 8, 1), (32, 4, 2)]
+
+
+def phase_kernels(serve_seq_lens: list[int], pd_seq_len: int) -> dict:
     """K1 against its plain version on every case, and timed at the serve
-    shape with the full model's heads and with each LOCAL_HEADS pair;
-    returns K1's kernels-line entry for each (H, Hkv) timed."""
+    shape with the full model's heads and with each LOCAL_HEADS pair, and
+    at each pp path's launch shape (K1_TIMED); returns K1's kernels-line
+    entry for each timed key, and "pd" for the P/D decode lane."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -302,9 +345,17 @@ def phase_kernels(serve_seq_lens: list[int]) -> dict:
         # The serving phase's decode batch (a split layout of its own).
         ("serve shape B=4", len(serve_seq_lens), 32, 8, 128, serve_seq_lens),
     ]
-    # One tp rank's heads of llama3-8b (phase 10): H/Hkv at tp = 2, 4, 8.
+    # One tp rank's heads of llama3-8b (phase 10): H/Hkv at tp = 2, 4, 8;
+    # Llama-3-70B's and one tp=2 rank's (phase 11): 64/8 and 32/4.
     cases += [(f"local H={H} Hkv={Hkv} B=8", 8, H, Hkv, 128,
-               [1, 17, 33, 100, 257, 1000, 2048, 5]) for H, Hkv in LOCAL_HEADS]
+               [1, 17, 33, 100, 257, 1000, 2048, 5]) for H, Hkv in LOCAL_HEADS + PP_HEADS]
+    # The pp paths' launches (phase 11): interleave groups and small-bucket
+    # ring steps of B=1 and B=2 lanes at the serve lengths; the split-KV
+    # layout depends on B and Hkv, so each is a layout of its own.
+    cases += [(f"pp H={H} Hkv={Hkv} B={B} lanes {sl}", B, H, Hkv, 128, sl)
+              for H, Hkv in [(32, 8)] + PP_HEADS for B in (1, 2)
+              for sl in lane_groups(serve_seq_lens, B)]
+    cases.append(("P/D decode lane B=1", 1, 32, 8, 128, [pd_seq_len]))
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for name, B, H, Hkv, D, sl in cases:
@@ -315,59 +366,78 @@ def phase_kernels(serve_seq_lens: list[int]) -> dict:
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
 
-    timing = {(32, 8): None}
-    timing |= {hk: None for hk in LOCAL_HEADS}
-    for H, Hkv in timing:
-        timing[H, Hkv] = time_attention(gen, serve_seq_lens, H, Hkv)
-        worst = max(worst, timing[H, Hkv].pop("max_abs_err"))
+    timing = {(H, Hkv, B): lane_groups(serve_seq_lens, B) for H, Hkv, B in K1_TIMED}
+    timing["pd"] = [[pd_seq_len]]
+    for key, groups in timing.items():
+        H, Hkv = (32, 8) if key == "pd" else key[:2]
+        timing[key] = time_attention(gen, groups, H, Hkv)
+        worst = max(worst, timing[key].pop("max_abs_err"))
     entry = {"name": "paged_decode_attention", "route": "cuda",
              "source": "llm_d_inference_scheduler_tpu_torch/csrc/paged_decode_attention.cu",
              "replaces": "llm_d_inference_scheduler_tpu/ops/pallas_paged_attention.py:139",
              "launches": None, "max_abs_err": worst}
-    return {hk: {**entry, **t} for hk, t in timing.items()}
+    return {key: {**entry, **t} for key, t in timing.items()}
 
 
-def time_attention(gen, serve_seq_lens: list[int], H: int, Hkv: int) -> dict:
-    """K1, its plain version and SDPA timed at the serving phase's decode
-    shape with H query and Hkv KV heads (the full model's, or one tp rank's):
-    the served prompts' lengths midway through their 32 tokens, one batch
-    bucket of 4. Eight layers' pages (> the 50 MB L2) rotate as in a decode
-    step, so reads are cold."""
+def time_attention(gen, groups: list[list[int]], H: int, Hkv: int) -> dict:
+    """K1, its plain version and SDPA timed with H query and Hkv KV heads
+    (the full model's, or one tp rank's) over ``groups``, the lane groups
+    one path launches at (the serve phase's four lanes midway through their
+    32 tokens: one bucket of 4, or a pp interleave's groups). Calls rotate
+    over the groups, so a time is the mean of one launch over them, and the
+    bound is the mean of theirs. Eight layers' pages per group (> the 50 MB
+    L2) rotate as in a decode step, so reads are cold."""
     from llm_d_inference_scheduler_tpu_torch.ops import paged_attention as pa
     from llm_d_inference_scheduler_tpu_torch.ops.attention import paged_decode_attention
     from llm_d_inference_scheduler_tpu_torch.tools.timing import device_ms, kernel_times
 
     L = 8
-    c = make_attention_case(gen, len(serve_seq_lens), H, Hkv, 128,
-                            serve_seq_lens, torch.bfloat16, layers=L)
+    cs = [make_attention_case(gen, len(sl), H, Hkv, 128, sl, torch.bfloat16, layers=L)
+          for sl in groups]
+    G = len(cs)
     it = {"i": 0}
 
+    def pick():
+        it["i"] = (it["i"] + 1) % (L * G)
+        return cs[it["i"] % G], it["i"] // G
+
     def args():
-        it["i"] = (it["i"] + 1) % L
-        i = it["i"]
+        c, i = pick()
         return (c["q"], c["k_pages"][i], c["v_pages"][i], c["block_tables"],
                 c["seq_lens"], c["cur_k"], c["cur_v"])
 
-    err = check_attention(f"serve shape B=4 H={H} Hkv={Hkv}, timed pages", args())
+    sdpas = [sdpa_yardstick(c) for c in cs]
+    err = max(check_attention(f"lanes {sl} H={H} Hkv={Hkv}, timed pages",
+                              (c["q"], c["k_pages"][0], c["v_pages"][0], c["block_tables"],
+                               c["seq_lens"], c["cur_k"], c["cur_v"]))
+              for sl, c in zip(groups, cs))
     kernel = lambda: pa.paged_decode_attention_cuda(*args())
     plain = lambda: paged_decode_attention(*args())
     k1, k1_wall, prof_ok = device_ms(kernel)
     p1, p1_wall, _ = device_ms(plain)
     k2, k2_wall, _ = device_ms(kernel)
     p2, p2_wall, _ = device_ms(plain)
-    library_ms, lib_wall, _ = device_ms(sdpa_yardstick(c))
+    turn = {"g": 0}
+
+    def library():
+        turn["g"] = (turn["g"] + 1) % G
+        return sdpas[turn["g"]]()
+
+    library_ms, lib_wall, _ = device_ms(library)
     kernel_ms, plain_ms = min(k1, k2), min(p1, p2)
-    bound_ms, bound_by = attention_bound_ms(c)
+    bounds = [attention_bound_ms(c) for c in cs]
+    bound_ms = sum(b for b, _ in bounds) / G
+    bound_by = "bytes" if all(by == "bytes" for _, by in bounds) else "operations"
     src = "device time (profiler)" if prof_ok else "CUDA events (profiler saw no device time)"
-    log(f"[kernels] paged_decode_attention timing at H={H} Hkv={Hkv} "
-        f"seq_lens={serve_seq_lens} "
+    log(f"[kernels] paged_decode_attention timing at H={H} Hkv={Hkv} lane groups "
+        f"{groups} (mean of one launch over the groups) "
         f"bf16, {src}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
         f"(order kernel, plain, kernel, plain), sdpa over pre-gathered KV "
         f"(gather excluded) {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
         f"by {bound_by}; wall per call by CUDA events, host launch included: "
         f"kernel {k1_wall:.4f}/{k2_wall:.4f} ms, plain {p1_wall:.4f}/{p2_wall:.4f} ms, "
         f"sdpa {lib_wall:.4f} ms")
-    if (H, Hkv) == (32, 8):
+    if (H, Hkv, G) == (32, 8, 1) and len(groups[0]) == 4:
         for name, ms in kernel_times(kernel).items():
             log(f"[kernels]   {ms * 1e3:8.2f} us  {name[:100]}")
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -1650,7 +1720,10 @@ def cublas_yardstick(lp, x, k: int):
                     for e, xe in groups]
 
 
-def phase_moe_kernels(cfg) -> dict:
+def phase_moe_kernels(cfg) -> tuple[dict, dict]:
+    """K2 against its plain version on every case; returns its kernels-line
+    entry timed at the serve bucket (T=4, prefill_* at T=1100) and the
+    same entry timed at a pp=2 interleave group (T=2)."""
     from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe, moe
     from llm_d_inference_scheduler_tpu_torch.tools.timing import device_ms, kernel_times
 
@@ -1663,8 +1736,10 @@ def phase_moe_kernels(cfg) -> dict:
     lp32 = {n: t.float() for n, t in lp16.items()}
     worst = 0.0
     timed = {}
-    # Decode sizes (one token per lane), the prefill of a ~1100-token prompt.
-    for T in (1, 4, 8, 1100):
+    # Decode sizes (one token per lane), the prefill of a ~1100-token
+    # prompt; then T=2, a pp=2 interleave group of the serve bucket (drawn
+    # last, so the others' inputs are the ones earlier runs timed).
+    for T in (1, 4, 8, 1100, 2):
         x16 = moe_tokens(gen, T, D, torch.bfloat16)
         for lp, x in ((lp16, x16), (lp32, x16.float())):
             args, counts = routed_args(lp, x, E, k)
@@ -1672,7 +1747,7 @@ def phase_moe_kernels(cfg) -> dict:
                             args)
             if x.dtype == torch.bfloat16:
                 worst = max(worst, err)
-                if T in (4, 1100):
+                if T in (2, 4, 1100):
                     timed[T] = (lp, x, args, counts)
     del lp32
     # Skewed routing (every token on one expert, k=1) and an empty expert.
@@ -1706,7 +1781,8 @@ def phase_moe_kernels(cfg) -> dict:
     log("[moe] moe_ffn_grouped (routing glue + K2) at T=8 ran under "
         "set_sync_debug_mode('error'): no host sync")
 
-    # Times at the serve phase's decode bucket (T=4) and at prefill size.
+    # Times at the serve phase's decode bucket (T=4), at a pp=2 interleave
+    # group of it (T=2) and at prefill size.
     res = {}
     for T, (lp, x, args, counts) in timed.items():
         kernel = lambda: grouped_moe.grouped_ffn_cuda(*args)
@@ -1749,7 +1825,10 @@ def phase_moe_kernels(cfg) -> dict:
 
     row["max_abs_err"] = worst
     del timed, lp16
-    return row
+    # The Mixtral pp=2 path launches K2 mostly at its interleave's groups.
+    pp_row = {**row, **{key: res[2][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "yardstick_ms")}}
+    return row, pp_row
 
 
 # ---- phase 7: Mixtral decode step, grouped against dense ------------------
@@ -2271,23 +2350,27 @@ TP = 2   # tp ranks of phase 10's llama3-8b engine; EP for its Mixtral engine
 EP = 2
 
 
-def parallel_argv(model: str, device: str, *, tp: int = 1, ep: int = 1,
+def parallel_argv(model: str, device: str, *, tp: int = 1, ep: int = 1, pp: int = 1,
                   extra: tuple[str, ...] = ()) -> list[str]:
-    """The server's command line for tp * ep ranks laid on one device (the
-    card, or the CPU in a rehearsal), phase 5's engine settings."""
+    """The server's command line for pp * tp * ep ranks laid on one device
+    (the card, or the CPU in a rehearsal), phase 5's engine settings."""
     dev = device if ":" in device or device == "cpu" else f"{device}:0"
     return ["--model", model, "--device", device, "--tp-size", str(tp),
-            "--ep-size", str(ep), "--devices", ",".join([dev] * (tp * ep)),
+            "--ep-size", str(ep), "--pp-size", str(pp),
+            "--devices", ",".join([dev] * (pp * tp * ep)),
             "--port", "0", "--max-batch", "8", "--max-model-len", "2048",
             "--decode-chunk", "8", "--kv-events-port", "0", *extra]
 
 
-async def serve_counted(server, bodies: list[dict]) -> dict:
-    """A warm-up request, then ``bodies`` at once (request ids r0, r1, ...)
+async def serve_counted(server, bodies: list[dict], ids: str = "r") -> dict:
+    """A warm-up request, then ``bodies`` at once (request ids r0, r1, ...,
+    or ``ids`` in place of r)
     with every kernel's launch count set to 0 just before and read just
-    after; returns the tokens, launches, decode steps, decode tok/s and the
-    mean wall time of one decode step (of the engine's fused chunks)."""
+    after; returns the tokens, launches (K2's by kernel path too), decode
+    steps (and by pp schedule), decode tok/s and the mean wall time of one
+    decode step (of the engine's fused chunks)."""
     from llm_d_inference_scheduler_tpu_torch import ops
+    from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe
 
     engine = server.engine
     tokens, _ = tap_engine(engine)
@@ -2295,12 +2378,14 @@ async def serve_counted(server, bodies: list[dict]) -> dict:
         "prompt": "warm up", "max_tokens": 9, "temperature": 0})
     tel = engine.telemetry
     before = (engine.decode_steps, tel.decode_step.sum, tel.generation_tokens.value)
+    by_schedule = dict(engine.decode_steps_by_schedule)
     ops.reset_kernel_launches()
     t0 = time.monotonic()
     results = await asyncio.gather(*[asyncio.to_thread(
-        http_post, server.port, {**b, "request_id": f"r{i}"}) for i, b in enumerate(bodies)])
+        http_post, server.port, {**b, "request_id": f"{ids}{i}"}) for i, b in enumerate(bodies)])
     wall = time.monotonic() - t0
     launches = ops.kernel_launches()
+    paths = dict(grouped_moe.path_launches)
     steps = engine.decode_steps - before[0]
     dec_s = tel.decode_step.sum - before[1]
     dec_tokens = tel.generation_tokens.value - before[2] - len(bodies)
@@ -2310,7 +2395,9 @@ async def serve_counted(server, bodies: list[dict]) -> dict:
             fail(f"request {i} returned no text or no finish reason: {choice}")
     return {"tokens": tokens, "launches": launches, "steps": steps, "wall": wall,
             "tok_s": dec_tokens / dec_s if dec_s else 0.0,
-            "step_ms": dec_s / max(steps, 1) * 1e3}
+            "step_ms": dec_s / max(steps, 1) * 1e3, "paths": paths,
+            "schedules": {k: engine.decode_steps_by_schedule[k] - n
+                          for k, n in by_schedule.items()}}
 
 
 def near_tie_flips(tag: str, ref_params, mcfg, prompts: list[list[int]],
@@ -2597,6 +2684,372 @@ async def phase_ep(cfg_model, params, card: str, *, model: str, served: str,
     return k1
 
 
+# ---- phase 11: pipeline-parallel serving -------------------------------------
+
+PP = 2   # stages of phase 11's llama3-8b and Mixtral engines
+LLAMA70B = "llama3-70b"
+# Llama-3-70B in bf16 is ~141 GB at 80 layers; 16 layers take 31.6 GB
+# (with the embedding and the head), so the engines' KV pages and the
+# forward that holds the logits to pp=1 fit beside them on 80 GB.
+LLAMA70B_LAYERS = 16
+LLAMA70B_SERVED = "llama3-70b-16l"
+
+
+def expected_k1(pp: int, tp: int, n_layers: int, schedules: dict) -> int:
+    """K1 launches of the decode steps each pp schedule took: tp x L a step
+    on the broadcast ring, pp x tp x L on the lane-group interleave (each of
+    the pp lane groups runs the whole stack, at B/pp lanes)."""
+    return tp * n_layers * (schedules["ring"] + pp * schedules["interleave"])
+
+
+def stage_tag(served: str, pp: int, tp: int = 1, ep: int = 1) -> str:
+    return (f"{served} pp{pp}" + (f"tp{tp}" if tp > 1 else "")
+            + (f"ep{ep}" if ep > 1 else ""))
+
+
+def schedule_logits(params, staged, mcfg, prompts: list[list[int]]) -> dict[str, float]:
+    """One decode step of each pp schedule against a pp=1 ``decode_step``
+    at the same tp x ep (the shards views of ``params``, so the rank sums
+    add in the same order and only the stages differ; ``phase_pp``'s
+    prefill gate holds tp and ep to tp=1) on the same tokens, positions
+    and block tables. Each side prefills ``prompts`` (one lane each) into
+    pages of its own layout with its own ``forward``; then the staged
+    ``decode_step`` (the broadcast ring) and both tokens of a two-token
+    lane-group interleave chunk (``pp_serve.interleaved_chunk``, fed the
+    reference's greedy tokens, so its second step reads the KV its first
+    wrote) are held to the reference's steps. Returns max |diff| / max
+    |logit| per step; needs len(prompts) % pp == 0."""
+    from llm_d_inference_scheduler_tpu_torch.models import llama
+    from llm_d_inference_scheduler_tpu_torch.parallel import pp_serve
+    from llm_d_inference_scheduler_tpu_torch.parallel import serve as par
+
+    layout = staged.layout
+    dev, dtype = params["embed"].device, params["embed"].dtype
+    flat = par.make_serve_layout([dev] * (layout.tp * layout.ep), layout.tp, layout.ep)
+    ref = par.shard_params(params, mcfg, flat)
+    block, B = mcfg.kv_block_size, len(prompts)
+    W = max(-(-(len(p) + 2) // block) for p in prompts)    # room for two tokens
+    tables = (1 + torch.arange(B * W, dtype=torch.int32, device=dev)).reshape(B, W)
+    pages = {id(ref): par.alloc_sharded_pages(mcfg, flat, 1 + B * W, dtype),
+             id(staged): par.alloc_sharded_pages(mcfg, layout, 1 + B * W, dtype)}
+    first = []
+    for b, prompt in enumerate(prompts):
+        ids = torch.tensor([prompt], device=dev)
+        pos = torch.arange(len(prompt), device=dev)
+        blk, slot = tables[b, pos // block].long(), pos % block
+        for side in (ref, staged):
+            logits, (ks, vs) = llama.forward(side, mcfg, ids, want_kv=True)
+            if side is ref:
+                first.append(int(logits[0, -1].argmax()))
+            del logits
+            for pk, pv, k, v in zip(*pages[id(side)], ks, vs):
+                i, j = blk.to(pk.device), slot.to(pk.device)
+                pk[:, i, j], pv[:, i, j] = k[:, 0].to(pk.device), v[:, 0].to(pk.device)
+    tok0 = torch.tensor(first, device=dev)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    want_logits = [llama.decode_step(ref, mcfg, tok0, lens, *pages[id(ref)], tables)[0]]
+    ring = llama.decode_step(staged, mcfg, tok0, lens, *pages[id(staged)], tables)[0]
+    want = [want_logits[0].argmax(-1)]
+    want_logits.append(llama.decode_step(ref, mcfg, want[0], lens + 1, *pages[id(ref)],
+                                         tables)[0])
+    want.append(want_logits[1].argmax(-1))
+    Bg = B // layout.pp
+    seen: list[list[torch.Tensor]] = [[], []]
+
+    def sample(logits, g):
+        j = (len(seen[0]) + len(seen[1])) // layout.pp   # each token's groups in order
+        seen[j].append(logits)
+        return want[j][g * Bg:(g + 1) * Bg].to(logits.device)
+
+    pp_serve.interleaved_chunk(staged, mcfg, tok0, lens, *pages[id(staged)], tables, 2, sample)
+
+    def rel(got, want_):
+        got = got.to(want_.device)
+        return float((got - want_).abs().max()) / float(want_.abs().max())
+
+    return {"ring": rel(ring, want_logits[0]),
+            "interleave step 1": rel(torch.cat(seen[0]), want_logits[0]),
+            "interleave step 2": rel(torch.cat(seen[1]), want_logits[1])}
+
+
+async def phase_pp(cfg_model, params, card: str, *, model: str, served: str, pp: int,
+                   tp: int = 1, ep: int = 1, grouped: bool = False,
+                   device: str = "cuda", ref: dict | None = None) -> dict:
+    """A pp (x tp x ep) engine from the server's parser, all ranks on one
+    device, against a pp=1 engine on the same weights (the stages' shards
+    are views of them): phase 5's four requests (batch bucket 4, so the
+    lane-group interleave wherever 4 divides by pp), then one single-lane
+    request (the broadcast ring), each counted; greedy tokens equal up to
+    reported near-ties; K1 launches as each schedule predicts (and K2, with
+    ``grouped``, L per prefill and per layer stack a step runs, all on
+    wgmma); the last-position logits of request 0 within LOGITS_REL_TOL of
+    pp=1's, and those of one decode step of each schedule
+    (``schedule_logits``). Returns the pp engine's launches and K2's by
+    path, each summed over both counted runs, and the pp=1 runs (``ref`` takes them back, so a second layout
+    of the same weights serves pp=1 once)."""
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.models import llama
+    from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe, paged_attention
+
+    tag = stage_tag(served, pp, tp, ep)
+    bodies = serve_prompts(served)
+    single = [{**bodies[0], "prompt": bodies[0]["prompt"][-300:]}]
+    extra = ("--served-model-name", served)
+    runs: dict[str, dict] = dict(ref or {})
+    for key, degrees in (("ref", {}), ("pp", dict(pp=pp, tp=tp, ep=ep))):
+        if key in runs:
+            continue
+        cfg, _ = parse_config(parallel_argv(model, device, **degrees, extra=extra))
+        cfg.grouped_moe = grouped
+        engine = TorchEngine(cfg, params=params)
+        if key == "pp" and (engine.layout is None or engine.layout.pp != pp
+                            or len(engine.k_pages) != pp * tp):
+            fail(f"{tag}: --pp-size {pp} built no staged engine")
+        if grouped and engine.mcfg.moe_impl != "grouped":
+            fail(f"{tag}: grouped_moe did not select the grouped FFN")
+        srv = EngineServer(cfg, engine=engine)
+        await srv.start()
+        try:
+            runs[key] = await serve_counted(srv, bodies)
+            runs[key + "-single"] = await serve_counted(srv, single, ids="s")
+            if key == "pp":
+                greedy = [i for i, b in enumerate(bodies) if b["temperature"] == 0]
+                tok = engine.tokenizer
+                prompts = [tok.encode(bodies[i]["prompt"]) for i in greedy]
+                # The engine's FFN (grouped or dense) on both sides.
+                mcfg = engine.mcfg
+                ids = torch.tensor([prompts[0]], device=engine.device)
+                with torch.no_grad():
+                    one = llama.forward(params, mcfg, ids)[0][0, -1]
+                    staged = llama.forward(engine.params, mcfg, ids)[0][0, -1]
+                    rel = float((one - staged).abs().max()) / float(one.abs().max())
+                    del one, staged
+                    by_step = schedule_logits(params, engine.params, mcfg,
+                                              [tok.encode(b["prompt"]) for b in bodies])
+        finally:
+            await srv.stop()
+        del srv, engine
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    L = cfg_model.n_layers
+    launches, paths = {}, {}
+    for key in ("pp", "pp-single"):
+        run = runs[key]
+        k1, want_k1 = run["launches"][paged_attention.KERNEL], expected_k1(
+            pp, tp, L, run["schedules"])
+        log(f"[{tag}] {card}, {'4 requests' if key == 'pp' else 'one request'}: decode "
+            f"steps {run['steps']} ({run['schedules']}), K1 launches {k1} (tp x L x "
+            f"(ring + pp x interleave) = {want_k1}), launches {run['launches']}, K2 by "
+            f"path {run['paths']}")
+        if run["steps"] <= 0 or k1 != want_k1:
+            fail(f"{tag}: K1 did not launch as the pp schedules predict ({k1} != {want_k1})")
+        if grouped:
+            n_prefills = len(bodies) if key == "pp" else 1
+            want_k2 = L * (n_prefills + run["schedules"]["ring"]
+                           + pp * run["schedules"]["interleave"])
+            k2 = run["launches"][grouped_moe.KERNEL]
+            if k2 != want_k2 or run["paths"]["wgmma"] != want_k2:
+                fail(f"{tag}: K2 launched {k2} times ({run['paths']}), not L per "
+                     f"prefill and per layer stack of each step ({want_k2}), all on wgmma")
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        for name, n in run["paths"].items():
+            paths[name] = paths.get(name, 0) + n
+    if runs["pp"]["schedules"]["interleave"] <= 0 and 4 % pp == 0:
+        fail(f"{tag}: the bucket-4 run never took the lane-group interleave")
+    if runs["pp-single"]["schedules"]["interleave"] != 0:
+        fail(f"{tag}: the single-lane run left the broadcast ring")
+    log(f"[{tag}] last-position logits of request 0 against pp=1: max |diff| / max "
+        f"|logit| = {rel:.4e} (limit {LOGITS_REL_TOL})")
+    if not rel <= LOGITS_REL_TOL:
+        fail(f"{tag}: the staged logits leave the pp=1 ones by {rel:.4e}")
+    log(f"[{tag}] decode-step logits of the four prompts against the decode_step of "
+        f"pp=1 at tp={tp} ep={ep} on the same tokens and tables, max |diff| / max |logit|: "
+        + ", ".join(f"{k} {v:.4e}" for k, v in by_step.items())
+        + f" (limit {LOGITS_REL_TOL})")
+    if not all(v <= LOGITS_REL_TOL for v in by_step.values()):
+        fail(f"{tag}: a pp schedule's decode logits leave pp=1's: {by_step}")
+    ids = [f"r{i}" for i in greedy] + ["s0"]
+    want_tokens = runs["ref"]["tokens"] | runs["ref-single"]["tokens"]
+    got_tokens = runs["pp"]["tokens"] | runs["pp-single"]["tokens"]
+    flips = near_tie_flips(tag, params, mcfg, prompts + [tok.encode(single[0]["prompt"])],
+                           want_tokens, got_tokens, ids)
+    got, want = runs["pp"], runs["ref"]
+    log(f"[{tag}] greedy tokens equal to the pp=1 engine's for {len(ids) - len(flips)} "
+        f"of {len(ids)} requests; near-tie flips (limit {TOKEN_TIE_STEPS} bf16 steps): "
+        f"{flips or 'none'}")
+    log(f"[{tag}] {card}: decode {got['tok_s']:.1f} tok/s, {got['step_ms']:.2f} ms a decode "
+        f"step over the 4 requests, single lane {runs['pp-single']['tok_s']:.1f} tok/s, "
+        f"{runs['pp-single']['step_ms']:.2f} ms (all stages on one card: not a pipeline "
+        f"speed); pp=1 {want['tok_s']:.1f} tok/s, {want['step_ms']:.2f} ms, single lane "
+        f"{runs['ref-single']['tok_s']:.1f} tok/s, {runs['ref-single']['step_ms']:.2f} ms")
+    return {"launches": launches, "paths": paths,
+            "ref": {k: runs[k] for k in ("ref", "ref-single")}}
+
+
+def shard_page_checks(src, src_ids: list[int], dst, dst_ids: list[int]) -> list[bool]:
+    """The imported pages of ``dst`` at ``dst_ids`` against every (stage,
+    kv-head) shard of ``src``'s pages at ``src_ids``, bitwise: one check
+    per shard of the staged or sharded side."""
+    from llm_d_inference_scheduler_tpu_torch.parallel import serve as par
+
+    def full(engine, ids):
+        ks, vs = [], []
+        for kp, vp in engine._page_pairs():
+            i = torch.tensor(ids, device=kp.device)
+            ks.append(kp[:, i])
+            vs.append(vp[:, i])
+        tp = engine.cfg.tp_size
+        return par.join_pages(ks, tp), par.join_pages(vs, tp)
+
+    want_k, want_v = full(src, src_ids)
+    got_k, got_v = full(dst, dst_ids)
+    checks = []
+    for engine in (src, dst):
+        pp, tp = engine.cfg.pp_size, engine.cfg.tp_size
+        if pp * tp == 1:
+            continue
+        Lp, h = want_k.shape[0] // pp, want_k.shape[3] // tp
+        for s in range(pp):
+            for t in range(tp):
+                cut = (slice(s * Lp, (s + 1) * Lp), slice(None), slice(None),
+                       slice(t * h, (t + 1) * h))
+                checks.append(torch.equal(want_k[cut], got_k[cut])
+                              and torch.equal(want_v[cut], got_v[cut]))
+    return checks
+
+
+async def phase_pp_pd(cfg_model, params, card: str, *, model: str = MODEL,
+                      device: str = "cuda") -> int:
+    """P/D of one ~1030-token prompt from a pp=2 prefill engine into a tp=1
+    decode engine, and from a tp=1 prefill engine into a pp=2 decode engine:
+    the imported pages equal each (stage, kv-head) shard bitwise, and the
+    tokens equal a monolithic tp=1 engine's up to reported near-ties.
+    Returns K1's launches on the pp=2 decode engine."""
+    from llm_d_inference_scheduler_tpu_torch import ops
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.ops import paged_attention
+
+    tag = f"{model} pp{PP} P/D"
+    cfg_pp, _ = parse_config(parallel_argv(model, device, pp=PP))
+    cfg_1, _ = parse_config(parallel_argv(model, device))
+    prompt = pd_prompts()["serial"]
+    body = {"prompt": prompt, "max_tokens": PD_TOKENS, "temperature": 0, "ignore_eos": True}
+    mono = EngineServer(cfg_1, engine=TorchEngine(cfg_1, params=params))
+    mono_tokens, _ = tap_engine(mono.engine)
+    await mono.start()
+    try:
+        await asyncio.to_thread(http_post, mono.port, {**body, "request_id": "pd-mono"})
+    finally:
+        await mono.stop()
+    ids = mono.engine.tokenizer.encode(prompt)
+    del mono
+    k1 = 0
+    for direction, (cfg_pre, cfg_dec) in (("pp2 -> tp1", (cfg_pp, cfg_1)),
+                                          ("tp1 -> pp2", (cfg_1, cfg_pp))):
+        pre = TorchEngine(cfg_pre, params=params)
+        dec = TorchEngine(cfg_dec, params=params)
+        exported: dict[str, list[int]] = {}
+        checks: list[bool] = []
+        stage_kv, import_into = pre._stage_kv, dec._import_into_slot
+
+        def record_ids(rid, ids_, stage_kv=stage_kv, exported=exported, **kwargs):
+            exported[rid] = ids_[: kwargs["meta"]["num_blocks"]]
+            return stage_kv(rid, ids_, **kwargs)
+
+        def check_pages(idx, pi, blocks, pre=pre, dec=dec, import_into=import_into,
+                        exported=exported, checks=checks):
+            import_into(idx, pi, blocks)
+            src = exported[pi.req.kv_transfer_params["remote_request_id"]]
+            checks.extend(shard_page_checks(pre, src, dec, blocks[: len(src)]))
+
+        pre._stage_kv, dec._import_into_slot = record_ids, check_pages
+        p_srv, d_srv = EngineServer(cfg_pre, engine=pre), EngineServer(cfg_dec, engine=dec)
+        pd_tokens, _ = tap_engine(dec)
+        await p_srv.start()
+        await d_srv.start()
+        try:
+            r1 = await asyncio.to_thread(http_post, p_srv.port, {
+                **body, "max_tokens": 1, "request_id": "pd-pre",
+                "kv_transfer_params": {"do_remote_decode": True}})
+            ktp = r1["json"]["kv_transfer_params"]
+            ops.reset_kernel_launches()
+            steps = dec.decode_steps
+            r2 = await asyncio.to_thread(http_post, d_srv.port, {
+                **body, "request_id": "pd-dec", "kv_transfer_params": ktp})
+            dec_k1 = ops.kernel_launches()[paged_attention.KERNEL]
+            steps = dec.decode_steps - steps
+        finally:
+            await d_srv.stop()
+            await p_srv.stop()
+        if r2["headers"].get("x-kv-pull-route") != "host" or not checks or not all(checks):
+            fail(f"{tag} {direction}: the handoff did not land the exporter's pages per "
+                 f"(stage, kv-head) shard (route {r2['headers'].get('x-kv-pull-route')}, "
+                 f"checks {checks})")
+        if dec_k1 != cfg_model.n_layers * steps:
+            fail(f"{tag} {direction}: K1 launched {dec_k1} times for {steps} decode steps "
+                 f"of one lane (the broadcast ring: n_layers a step)")
+        flips = near_tie_flips(f"{tag} {direction}", params, cfg_model, [ids],
+                               {"pd": mono_tokens["pd-mono"]}, {"pd": pd_tokens["pd-dec"]},
+                               ["pd"])
+        log(f"[{tag}] {direction}, {card}: {r2['headers'].get('x-kv-pull-bytes')} bytes "
+            f"pulled in {r2['headers'].get('x-kv-pull-ms')} ms, pages equal per (stage, "
+            f"kv-head) shard ({len(checks)} checks), K1 {dec_k1} launches on the decode "
+            f"engine ({steps} steps); tokens against the tp=1 monolithic engine: "
+            f"{'equal' if not flips else flips}")
+        if cfg_dec is cfg_pp:
+            k1 = dec_k1
+        del p_srv, d_srv, pre, dec
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return k1
+
+
+# ---- phase 12: the simulator ---------------------------------------------------
+
+
+async def phase_sim(card: str) -> None:
+    """The port's CPU simulator from the server's parser with --backend sim
+    --platform cpu: one completion, one streamed request, /health and
+    /metrics, and no kernel launch."""
+    from llm_d_inference_scheduler_tpu_torch import ops
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.engine.sim import SimEngine
+
+    cfg, _ = parse_config(["--backend", "sim", "--platform", "cpu", "--model", MODEL,
+                           "--port", "0", "--kv-events-port", "0"])
+    server = EngineServer(cfg)
+    if not isinstance(server.engine, SimEngine) or cfg.device != "cpu":
+        fail(f"sim: --backend sim --platform cpu built {type(server.engine).__name__} "
+             f"on {cfg.device}")
+    await server.start()
+    try:
+        ops.reset_kernel_launches()
+        plain = await asyncio.to_thread(http_post, server.port, {
+            "prompt": "Simulated engine, one completion.", "max_tokens": 8})
+        streamed = await asyncio.to_thread(http_post, server.port, {
+            "prompt": "Simulated engine, streamed.", "max_tokens": 8, "stream": True})
+        launches = ops.kernel_launches()
+        health = json.loads(await asyncio.to_thread(http_get, server.port, "/health"))
+        metrics = await asyncio.to_thread(http_get, server.port, "/metrics")
+    finally:
+        await server.stop()
+    texts = [r["json"]["choices"][0] for r in (plain, streamed)]
+    log(f"[sim] {card}: completion {texts[0]['text']!r} ({texts[0]['finish_reason']}), "
+        f"streamed {texts[1]['text']!r} (client TTFT {streamed['ttft_s'] * 1e3:.1f} ms), "
+        f"/health {health}, kernel launches {launches}")
+    if any(not t["text"] or t["finish_reason"] != "length" for t in texts):
+        fail(f"sim: a request returned no text: {texts}")
+    if health.get("status") != "ok" or "jetstream:generation_tokens_total" not in metrics:
+        fail(f"sim: /health {health} or /metrics without the jetstream names")
+    if any(launches.values()):
+        fail(f"sim: the simulator launched kernels: {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2628,8 +3081,9 @@ def main() -> int:
     # 3. kernels against their plain versions
     tok = ByteTokenizer(128_256)
     serve_lens = [len(tok.encode(b["prompt"])) + 16 for b in serve_prompts()]
-    k1_by_heads = phase_kernels(serve_lens)
-    k1 = k1_by_heads[32, 8]
+    pd_len = len(tok.encode(pd_prompts()["serial"])) + PD_TOKENS // 2
+    k1_by_shape = phase_kernels(serve_lens, pd_len)
+    k1 = k1_by_shape[32, 8, 4]
 
     # 4. full-width decode step
     cfg = get_config(MODEL)
@@ -2662,7 +3116,7 @@ def main() -> int:
     # 6. K2 against its plain version at full Mixtral width
     moe_cfg = dataclasses.replace(get_config(MOE_MODEL), n_layers=MOE_LAYERS)
     with torch.no_grad():
-        k2 = phase_moe_kernels(moe_cfg)
+        k2, k2_pp = phase_moe_kernels(moe_cfg)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2719,16 +3173,44 @@ def main() -> int:
         entries += asyncio.run(serve_checkpoint(family, card, k1, k2))
     # 10. tensor- and expert-parallel serving on the one card: llama3-8b
     # with tp=2 (phase 5's requests against tp=1, then a P/D handoff into a
-    # tp=1 engine), 10b TLS and chaos on a tp=2 engine, then Mixtral (16
-    # layers) with ep=2 against tp=1, dense. Weights from phases 4 and 7's
-    # seed; the sharded engines' shards are views of them.
+    # tp=1 engine), 10b TLS and chaos on a tp=2 engine; 11. llama3-8b with
+    # pp=2 on the same weights (phase 5's requests and a single lane against
+    # pp=1, P/D both ways with a pp=2 engine). Weights from phases 4 and 7's
+    # seed; the sharded and staged engines' shards are views of them.
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llama.init_params(cfg, "cuda", "bfloat16", gen)
     tp_launches, tp_pd_launches = asyncio.run(phase_tp(cfg, params, card))
     asyncio.run(phase_tls_chaos(params, card))
+    pp_llama = asyncio.run(phase_pp(cfg, params, card, model=MODEL, served=MODEL, pp=PP))
+    pp_pd_launches = asyncio.run(phase_pp_pd(cfg, params, card))
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    # 11. Llama-3-70B at full width, 16 of 80 layers: pp=4, then pp=2 x tp=2,
+    # each against pp=1 on one set of weights.
+    cfg70 = dataclasses.replace(get_config(LLAMA70B), n_layers=LLAMA70B_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.monotonic()
+    params = llama.init_params(cfg70, "cuda", "bfloat16", gen)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.nbytes for t in llama.flat_params(params).values())
+    log(f"[pp] random {LLAMA70B} weights, {LLAMA70B_LAYERS} of 80 layers "
+        f"({n_bytes / 1e9:.1f} GB), drawn on the card in {time.monotonic() - t0:.1f}s")
+    with tempfile.TemporaryDirectory() as model_dir:
+        with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg70), f)
+        pp_70b, ref = {}, None
+        for pp, tp in ((4, 1), (2, 2)):
+            pp_70b[pp, tp] = asyncio.run(phase_pp(cfg70, params, card, model=model_dir,
+                                                  served=LLAMA70B_SERVED, pp=pp, tp=tp,
+                                                  ref=ref))
+            ref = pp_70b[pp, tp]["ref"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 10 and 11 on Mixtral (16 layers): ep=2 dense against tp=1 dense, then
+    # pp=2 with the grouped FFN against pp=1 grouped and pp=2 x ep=2 dense
+    # against pp=1 dense.
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llama.init_params(moe_cfg, "cuda", "bfloat16", gen)
     with tempfile.TemporaryDirectory() as model_dir:
@@ -2736,21 +3218,47 @@ def main() -> int:
             json.dump(dataclasses.asdict(moe_cfg), f)
         ep_launches = asyncio.run(phase_ep(moe_cfg, params, card, model=model_dir,
                                            served=MOE_SERVED))
+        pp_moe = asyncio.run(phase_pp(moe_cfg, params, card, model=model_dir,
+                                      served=MOE_SERVED, pp=PP, grouped=True))
+        pp_moe_ep = asyncio.run(phase_pp(moe_cfg, params, card, model=model_dir,
+                                         served=MOE_SERVED, pp=PP, ep=EP))
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    entries += [{**k1_by_heads[32 // TP, 8 // TP], "path": f"{MODEL} tp{TP} serve",
+    # 12. the CPU simulator from the parser: no kernel.
+    asyncio.run(phase_sim(card))
+    K1 = paged_attention.KERNEL
+    # Each pp path's K1 entry is timed at the lanes it mostly launches at
+    # (K1_TIMED); its launches by shape are in the phase's log lines.
+    entries += [{**k1_by_shape[32 // TP, 8 // TP, 4], "path": f"{MODEL} tp{TP} serve",
                  "launches": tp_launches},
                 {**k1, "path": f"{MODEL} tp{TP} P/D decode (tp=1)",
                  "launches": tp_pd_launches},
-                {**k1, "path": f"{MOE_SERVED} ep{EP} serve", "launches": ep_launches}]
+                {**k1, "path": f"{MOE_SERVED} ep{EP} serve", "launches": ep_launches},
+                {**k1_by_shape[32, 8, 2], "path": f"{MODEL} pp{PP} serve",
+                 "launches": pp_llama["launches"][K1]},
+                {**k1_by_shape["pd"], "path": f"{MODEL} pp{PP} P/D decode",
+                 "launches": pp_pd_launches},
+                {**k1_by_shape[64, 8, 1], "path": f"{LLAMA70B_SERVED} pp4 serve",
+                 "launches": pp_70b[4, 1]["launches"][K1]},
+                {**k1_by_shape[32, 4, 2], "path": f"{LLAMA70B_SERVED} pp2tp2 serve",
+                 "launches": pp_70b[2, 2]["launches"][K1]},
+                {**k1_by_shape[32, 8, 2], "path": f"{MOE_SERVED} pp{PP} serve",
+                 "launches": pp_moe["launches"][K1]},
+                {**k2_pp, "path": f"{MOE_SERVED} pp{PP} serve",
+                 "launches": pp_moe["launches"][grouped_moe.KERNEL],
+                 "launches_by_path": pp_moe["paths"]},
+                {**k1_by_shape[32, 8, 2], "path": f"{MOE_SERVED} pp{PP}ep{EP} serve",
+                 "launches": pp_moe_ep["launches"][K1]}]
+
 
     log(f"[done] launches on the main paths: llama3-8b serve {dense_launches}, "
         f"llama3-8b P/D decode {pd_launches}, llama3-8b E/P/D decode {epd_launches}, "
         f"{MOE_SERVED} serve {moe_launches} (grouped_moe_ffn by path {moe_paths}), "
         f"{MOE_SERVED} embeddings {moe_embed['launches']} (by path "
         f"{moe_embed['paths']}), {MODEL} tp{TP} serve {tp_launches}, its P/D decode "
-        f"(tp=1) {tp_pd_launches}, {MOE_SERVED} ep{EP} serve {ep_launches}; "
+        f"(tp=1) {tp_pd_launches}, {MOE_SERVED} ep{EP} serve {ep_launches}, pp paths "
+        f"{[(e['path'], e['launches']) for e in entries if ' pp' in e['path']]}; "
         f"peak device memory allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 

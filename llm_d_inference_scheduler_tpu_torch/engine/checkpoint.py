@@ -54,9 +54,9 @@ def load_params(path: str, cfg: ModelConfig, device: str | torch.device = "cuda"
                 layout: par.ServeLayout | None = None):
     """The stacked params of a converted directory on ``device``, cast to
     ``dtype`` (default: the config's), each tensor checked against ``cfg``.
-    With ``layout`` each tensor is split on the host as it is read and each
-    shard goes to its rank's device (``ShardedParams``): no device holds the
-    whole model."""
+    With ``layout`` each tensor is split on the host as it is read (by
+    stage first, then over tp/ep) and each shard goes to its rank's device
+    (``ShardedParams``): no device holds the whole model."""
     device = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     flat = safetensors_io.load_file(weights_path(path))
@@ -69,9 +69,9 @@ def load_params(path: str, cfg: ModelConfig, device: str | torch.device = "cuda"
             raise ValueError(f"{path}: {name} is {tuple(flat[name].shape)}, the "
                              f"config needs {shape}")
     if layout is not None:
-        par.validate_tp(cfg, layout.tp, layout.ep)
+        par.validate_degrees(cfg, layout.tp, layout.ep, layout.pp)
         return par.from_rank_lists(
-            {name: [v.to(device=d, dtype=dt) for v, d in zip(
+            {name: [None if v is None else v.to(device=d, dtype=dt) for v, d in zip(
                 par.rank_views(name, flat.pop(name), cfg, layout), layout.devices)]
              for name in want}, layout)
     return llama.nested_params({name: flat.pop(name).to(device=device, dtype=dt)

@@ -13,6 +13,19 @@ from ..models.configs import ModelConfig, get_config
 class EngineConfig:
     model: str = "tiny"           # registry name or a dir with model_config.json
     served_model_name: str | None = None
+    # "torch" (TorchEngine) | "sim" (engine/sim.py: the CPU simulator with
+    # scripted latencies, which runs no model). The JAX package's "tpu"
+    # engine has no counterpart here.
+    backend: str = "torch"
+    # Sim backend knobs (the JAX config's, same defaults): prefill and
+    # decode cost per token, and the priced P/D KV import per block pulled
+    # from the prefill peer's staged export, flat or per peer
+    # ("host:port" of the prefill engine -> ms per block).
+    sim_prefill_ms_per_token: float = 0.02
+    sim_decode_ms_per_token: float = 2.0
+    sim_kv_pull_ms_per_block: float = 0.2
+    sim_kv_pull_ms_per_peer: dict[str, float] = dataclasses.field(
+        default_factory=dict)
     # A converted directory (models/convert_hf.py) whose model.safetensors
     # the engine loads; empty = the model directory's own weights when
     # ``model`` is one, else random weights drawn from ``seed``.
@@ -63,11 +76,16 @@ class EngineConfig:
     # Expert parallelism (MoE models): the experts axis over ep_size ranks;
     # composes with tp_size (tp_size * ep_size ranks in all).
     ep_size: int = 1
+    # Pipeline parallelism (parallel/pp_serve.py): the layer stack and its
+    # KV pages over pp_size stages, each split over tp_size * ep_size ranks
+    # as above; every path runs the stages in turn. Composes with tp_size
+    # and ep_size (pp_size * tp_size * ep_size ranks in all).
+    pp_size: int = 1
     device: str = "cuda"          # "cpu" only when asked (tests)
-    # The device of each of the tp_size * ep_size ranks, comma-separated in
-    # rank order (a device may repeat: two ranks can share one card). Empty
-    # = the first tp_size * ep_size CUDA devices, or the CPU for every rank
-    # when ``device`` is "cpu".
+    # The device of each of the pp_size * tp_size * ep_size ranks,
+    # comma-separated in rank order (a device may repeat: two ranks can
+    # share one card). Empty = the first pp_size * tp_size * ep_size CUDA
+    # devices, or the CPU for every rank when ``device`` is "cpu".
     devices: str = ""
     dtype: str | None = None      # None = the passed params' or the model config's
     # TLS for the engine's HTTP surface: cert dir with tls.crt/tls.key, or a
@@ -90,13 +108,13 @@ class EngineConfig:
     chaos_seed: int = 0
 
     def rank_devices(self) -> list[str] | None:
-        """The device of each tp * ep rank: ``devices`` when given, the CPU
-        for every rank when ``device`` is "cpu", else None (the first CUDA
-        devices, ``parallel.serve.make_serve_layout``'s default)."""
+        """The device of each pp * tp * ep rank: ``devices`` when given, the
+        CPU for every rank when ``device`` is "cpu", else None (the first
+        CUDA devices, ``parallel.serve.make_serve_layout``'s default)."""
         if self.devices:
             return [d.strip() for d in self.devices.split(",")]
         if self.device.split(":")[0] == "cpu":
-            return [self.device] * (self.tp_size * self.ep_size)
+            return [self.device] * (self.pp_size * self.tp_size * self.ep_size)
         return None
 
     def resolved_kv_events_port(self) -> int:

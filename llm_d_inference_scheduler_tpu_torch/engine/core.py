@@ -70,11 +70,24 @@ Port of ``TpuEngine`` (``llm_d_inference_scheduler_tpu/engine/core.py``):
   layout and an import splits them, so sharded and single-device engines
   (port or JAX) hand KV to each other as before. The grouped MoE FFN is
   refused there: the sharded path stays dense, as in the JAX engine.
+- Pipeline parallel (``pp_size``; ``parallel/pp_serve.py``): the ranks form
+  ``pp`` stages, each holding its slab of the layers and their pages (one
+  K/V pair per (stage, tp rank) ``[L/pp, N, block, Hkv/tp, Dh]``), the
+  embedding and head on stage 0. Prefill, prefix prefill and the
+  embeddings run the stages in turn; a decode chunk takes the lane-group
+  interleave when its batch bucket divides by ``pp`` and the broadcast
+  ring otherwise (the JAX ``"auto"`` schedule). Block ids stay global, so
+  the allocator, prefix caching, the events and ``/debug/kv`` do not
+  change; the ``/kv`` export joins the stages along the layer axis after
+  the kv-head shards, so it keeps the single-device layout. A pp engine
+  prefills one prompt at a time, as the JAX one (``prefill_batch`` has no
+  effect), and ``grouped_moe`` runs under pp alone (each stage holds its
+  layers' experts whole).
 - A TLS exporter names ``https`` as its ``remote_scheme``; the importer
   dials it with the engine's client TLS policy (``utils/tls.py``).
 
 Not in this slice (the JAX engine has them): the device-to-device transfer
-server and the multi-host KV wires, multi-host, pipeline parallelism.
+server and the multi-host KV wires, multi-host.
 """
 
 from __future__ import annotations
@@ -99,6 +112,7 @@ import torch
 from ..models import llama, vision
 from ..ops import _build, grouped_moe, paged_attention
 from ..ops.moe import check_tileable
+from ..parallel import pp_serve
 from ..parallel import serve as par
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.hashing import chain_block_hashes
@@ -175,13 +189,14 @@ class TorchEngine:
             # the checkpoint. One the port cannot read (Orbax, no weights)
             # is refused by the load below, never served with random weights.
             cfg.checkpoint_path = cfg.model
-        # tp_size * ep_size > 1: the ranks' devices (parallel/serve.py); the
-        # first holds the residual stream, sampling and the vision tower.
+        # pp_size * tp_size * ep_size > 1: the ranks' devices
+        # (parallel/serve.py); the first (stage 0's) holds the embedding,
+        # the head, sampling and the vision tower.
         self.layout: par.ServeLayout | None = None
-        if cfg.tp_size * cfg.ep_size > 1:
-            par.validate_tp(self.mcfg, cfg.tp_size, cfg.ep_size)
+        if cfg.pp_size * cfg.tp_size * cfg.ep_size > 1:
+            par.validate_degrees(self.mcfg, cfg.tp_size, cfg.ep_size, cfg.pp_size)
             self.layout = par.make_serve_layout(cfg.rank_devices(), cfg.tp_size,
-                                                cfg.ep_size)
+                                                cfg.ep_size, cfg.pp_size)
             self.device = self.layout.devices[0]
         else:
             self.device = resolve_device((cfg.rank_devices() or [cfg.device])[0])
@@ -278,6 +293,8 @@ class TorchEngine:
         self._thread: threading.Thread | None = None
         self._sample_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.decode_steps = 0  # decode steps run (a chunk of K adds K)
+        # ... of them by pp schedule (parallel/pp_serve.py).
+        self.decode_steps_by_schedule = {"ring": 0, "interleave": 0}
 
     # ---- public API (event-loop side) ---------------------------------
 
@@ -386,10 +403,8 @@ class TorchEngine:
         engine's seed on its device. Built on first use."""
         with self._vision_lock:
             if self._vision is None:
-                vcfg = dataclasses.replace(vision.VIT_TINY,
-                                           out_dim=self.mcfg.d_model)
-                gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
-                self._vision = (vcfg, vision.init_vision_params(vcfg, self.device, gen))
+                self._vision = vision.build_tower(self.mcfg.d_model, self.cfg.seed,
+                                                  self.device)
             return self._vision
 
     def encode_images(self, pixels: np.ndarray) -> np.ndarray:
@@ -397,11 +412,7 @@ class TorchEngine:
         [N * n_patches, d_model], item after item. Thread-safe (plain
         PyTorch ops, no kernel wrapper): the server runs it off the event
         loop."""
-        vcfg, params = self.vision()
-        with torch.no_grad():
-            out = vision.encode_image(params, vcfg,
-                                      self._to_dev(np.asarray(pixels, np.float32)))
-        return out.reshape(-1, out.shape[-1]).float().cpu().numpy()
+        return vision.encode_to_host(*self.vision(), pixels, self.device)
 
     # ---- engine thread -------------------------------------------------
 
@@ -483,11 +494,12 @@ class TorchEngine:
             if n > 0:
                 self._run_prefill(_DUMMY_REQ, [0] * n, [0] * n, prefix,
                                   [0] * (prefix // block), row)
-        K, n = self.cfg.prefill_batch, windows[0][0]
+        K, n = self._prefill_batch(), windows[0][0]
         if K > 1 and n > 0:
             self._prefill_rows([_DUMMY_REQ] * K, [[0] * n] * K,
                                np.zeros((K, self.max_blocks_per_seq), np.int32))
-        steps, W, b = self.decode_steps, self.max_blocks_per_seq, 1
+        steps = self.decode_steps, dict(self.decode_steps_by_schedule)
+        W, b = self.max_blocks_per_seq, 1
         while True:
             B = self._batch_bucket(b)
             self._decode_chunk(np.zeros((B,), np.int32), np.zeros((B,), np.int32),
@@ -495,7 +507,7 @@ class TorchEngine:
             if B >= self.cfg.max_batch:
                 break
             b = 2 * B
-        self.decode_steps = steps
+        self.decode_steps, self.decode_steps_by_schedule = steps
         if self.cfg.role == "encode":
             vcfg, _ = self.vision()
             self.encode_images(np.zeros(
@@ -690,7 +702,7 @@ class TorchEngine:
         prefix matches see the hashes they committed. A failed dispatch
         answers every entry not dispatched yet with ABORT (they are off the
         queue already) and frees its blocks."""
-        K = max(self.cfg.prefill_batch, 1)
+        K = self._prefill_batch()
         win = self._prefill_window()
         singles: list[tuple] = []    # (i, req, out, loop, need, pre | None)
         by_bucket: dict[int, list[tuple]] = {}
@@ -751,6 +763,12 @@ class TorchEngine:
             for _, req, out, loop, _, _ in singles:
                 self._abort_to(out, loop, req, len(req.prompt_token_ids))
             raise
+
+    def _prefill_batch(self) -> int:
+        """Prompts per prefill dispatch: ``prefill_batch``, or 1 for a pp
+        engine, which prefills one prompt at a time as the JAX one does (its
+        stage ring is traced at [1, S])."""
+        return 1 if self.cfg.pp_size > 1 else max(self.cfg.prefill_batch, 1)
 
     def _prompt_and_hashes(self, req: EngineRequest):
         """(truncated prompt, chain hashes, caching on) of a request, shared
@@ -1052,7 +1070,7 @@ class TorchEngine:
     # ---- P/D export (prefill side) ---------------------------------------
 
     def _page_pairs(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
-        """(K, V) pages per tp rank (one pair on one device)."""
+        """(K, V) pages per (stage, tp) rank (one pair on one device)."""
         if self.layout is None:
             return [(self.k_pages, self.v_pages)]
         return list(zip(self.k_pages, self.v_pages))
@@ -1060,15 +1078,16 @@ class TorchEngine:
     def _gather_to_host(self, ids: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
         """The pages of ``ids`` as host tensors [L, len(ids), block, Hkv, Dh]:
         the single-device layout, with a sharded engine's kv-head shards
-        joined in rank order. Blocks the engine thread until the device has
-        written them (the copy waits behind any decode chunk already
-        queued)."""
+        joined in rank order and its stages along the layer axis. Blocks the
+        engine thread until the device has written them (the copy waits
+        behind any decode chunk already queued)."""
         ks, vs = [], []
         for kp, vp in self._page_pairs():
             idx = torch.tensor(ids, dtype=torch.long, device=kp.device)
             ks.append(kp[:, idx].cpu())
             vs.append(vp[:, idx].cpu())
-        return par.join_kv_heads(ks), par.join_kv_heads(vs)
+        tp = self.cfg.tp_size
+        return par.join_pages(ks, tp), par.join_pages(vs, tp)
 
     def _maybe_stage_chunk(self, s: _Slot) -> None:
         """Chunk-streamed remote-decode prefill (``stream_chunks``): gather the
@@ -1363,10 +1382,10 @@ class TorchEngine:
         first = int(ktp["remote_first_token"]
                     if ktp.get("remote_first_token") is not None
                     else headers["x-kv-first-token"])
-        tp = len(self._page_pairs())
+        tp, pp = self.cfg.tp_size, self.cfg.pp_size
         for (kp, vp), ks, vs in zip(self._page_pairs(),
-                                    par.split_kv_heads(k[:, :real_nb], tp),
-                                    par.split_kv_heads(v[:, :real_nb], tp)):
+                                    par.split_pages(k[:, :real_nb], tp, pp),
+                                    par.split_pages(v[:, :real_nb], tp, pp)):
             ids = torch.tensor(blocks[:real_nb], dtype=torch.long, device=kp.device)
             kp[:, ids] = ks.to(kp.device, self.dtype)
             vp[:, ids] = vs.to(vp.device, self.dtype)
@@ -1414,20 +1433,34 @@ class TorchEngine:
     def _decode_chunk(self, tokens: np.ndarray, positions: np.ndarray,
                       tables: np.ndarray, reqs) -> np.ndarray:
         """``decode_chunk`` decode+sample steps on the device, each step's
-        sampled tokens feeding the next; ONE readback of the [K, B] tokens."""
-        K = self.cfg.decode_chunk
-        knobs = SamplingKnobs.from_numpy(*self._sample_np(reqs), self.device)
+        sampled tokens feeding the next; ONE readback of the [K, B] tokens.
+        A pp engine takes the lane-group interleave when B divides by pp,
+        else the broadcast ring (``llama.decode_step`` through the stages)."""
+        K, B, P = self.cfg.decode_chunk, len(tokens), self.cfg.pp_size
+        sample_np = self._sample_np(reqs)
         tok = self._to_dev(tokens)
         pos = self._to_dev(positions)
         tab = self._to_dev(tables)
-        out = torch.empty((K, len(tokens)), dtype=torch.int32, device=self.device)
-        for k in range(K):
-            logits, _, _ = llama.decode_step(self.params, self.mcfg, tok, pos,
-                                             self.k_pages, self.v_pages, tab)
-            tok = sample_tokens(logits, self._sample_gen, knobs)
-            out[k] = tok
-            pos = pos + 1
+        if pp_serve.use_interleave(B, P):
+            Bg = B // P
+            knobs = [SamplingKnobs.from_numpy(*(a[g * Bg:(g + 1) * Bg] for a in sample_np),
+                                              self.device) for g in range(P)]
+            out = pp_serve.interleaved_chunk(
+                self.params, self.mcfg, tok, pos, self.k_pages, self.v_pages, tab, K,
+                lambda logits, g: sample_tokens(logits, self._sample_gen, knobs[g]))
+            schedule = "interleave"
+        else:
+            knobs = SamplingKnobs.from_numpy(*sample_np, self.device)
+            out = torch.empty((K, B), dtype=torch.int32, device=self.device)
+            for k in range(K):
+                logits, _, _ = llama.decode_step(self.params, self.mcfg, tok, pos,
+                                                 self.k_pages, self.v_pages, tab)
+                tok = sample_tokens(logits, self._sample_gen, knobs)
+                out[k] = tok
+                pos = pos + 1
+            schedule = "ring"
         self.decode_steps += K
+        self.decode_steps_by_schedule[schedule] += K
         return out.cpu().numpy()
 
     def _decode_once(self):

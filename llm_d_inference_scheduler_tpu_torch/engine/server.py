@@ -49,8 +49,14 @@ Non-streamed responses carry ``x-kv-hit-blocks`` / ``x-kv-hit-tokens`` and
 HTTP/1.1 with keep-alive; SSE bodies use chunked transfer encoding. The server is built on ``asyncio`` streams so that
 serving needs no HTTP package beyond the standard library.
 
+The engine behind it is ``TorchEngine`` or, with ``--backend sim``, the CPU
+simulator (``engine/sim.py``); where the JAX server treats a sim
+differently, so does this one: a sim's ``GET /kv/{id}`` answers 501 (it
+holds no KV), and its chunk answers carry the block count without bytes.
+
 Run: ``python -m llm_d_inference_scheduler_tpu_torch.engine.server --model llama3-8b``
-(``--device cpu`` to run on the CPU).
+(``--device cpu`` or ``--platform cpu`` to run on the CPU; ``--pp-size``,
+``--tp-size`` and ``--ep-size`` shard the model over ``--devices``).
 """
 
 from __future__ import annotations
@@ -213,15 +219,30 @@ class _Conn:
         await self.writer.drain()
 
 
+BACKENDS = ("torch", "sim")
+
+
+def make_engine(cfg: EngineConfig):
+    """The engine ``cfg.backend`` names (the JAX ``make_engine``)."""
+    if cfg.backend == "sim":
+        from .sim import SimEngine
+
+        return SimEngine(cfg)
+    if cfg.backend == "torch":
+        from .core import TorchEngine
+
+        return TorchEngine(cfg)
+    raise ValueError(f"unknown engine backend {cfg.backend!r}: the PyTorch port "
+                     f"has {', '.join(BACKENDS)} ('tpu' is the JAX package's engine)")
+
+
 class EngineServer:
     """The engine's HTTP surface. ``port=0`` binds a free port (``self.port``
     holds the bound one after ``start``)."""
 
     def __init__(self, cfg: EngineConfig, engine=None):
         if engine is None:
-            from .core import TorchEngine
-
-            engine = TorchEngine(cfg)
+            engine = make_engine(cfg)
         self.cfg = cfg
         self.engine = engine
         self.draining = False
@@ -1214,13 +1235,18 @@ class EngineServer:
             if chunk >= int(rec.get("chunks_staged", 0)):
                 await conn.send(204, b"", octets, headers)
                 return
-            k, v = rec["chunk_data"][chunk]
             headers.update({"x-kv-chunk": str(chunk),
-                            "x-kv-chunk-blocks": str(int(rec["chunk_blocks"][chunk])),
-                            "x-kv-chunk-shape": json.dumps(list(k.shape)),
+                            "x-kv-chunk-blocks": str(int(rec["chunk_blocks"][chunk]))})
+            if "chunk_data" not in rec:  # a sim prices the pull: no bytes
+                await conn.send(200, b"", octets, headers)
+                return
+            k, v = rec["chunk_data"][chunk]
+            headers.update({"x-kv-chunk-shape": json.dumps(list(k.shape)),
                             "x-kv-dtype": kv_wire.dtype_name(k.dtype)})
             await conn.send(200, (kv_wire.tensor_bytes(k), kv_wire.tensor_bytes(v)),
                             octets, headers)
+        elif "k" not in rec:
+            raise HTTPError(501, "sim engine holds no real KV")
         else:
             k, v = rec["k"], rec["v"]
             await conn.send(200, (kv_wire.tensor_bytes(k), kv_wire.tensor_bytes(v)),
@@ -1276,6 +1302,10 @@ async def run_server(cfg: EngineConfig, drain_timeout_s: float = 30.0):
         await server.stop()
 
 
+# --platform as a torch device; "tpu" (the JAX package's) is refused.
+_PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
 def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
     """The engine config and drain timeout of a command line."""
     import argparse
@@ -1284,6 +1314,13 @@ def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
     p.add_argument("--model", default="tiny",
                    help="registry name, or a directory the port's converter "
                         "wrote (model_config.json + model.safetensors)")
+    p.add_argument("--backend", default="torch",
+                   help="the engine: torch (the default) or sim (the CPU "
+                        "simulator, which runs no model)")
+    p.add_argument("--platform", default=None,
+                   help="cpu runs the engine on the CPU (as --device cpu), "
+                        "gpu or cuda on the card; a sim runs nothing on any "
+                        "device with either")
     p.add_argument("--checkpoint", default="",
                    help="converted directory whose weights to load for --model")
     p.add_argument("--role", default="both",
@@ -1315,10 +1352,14 @@ def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
     p.add_argument("--ep-size", type=int, default=1,
                    help="expert-parallel degree for MoE models (composes "
                         "with --tp-size)")
+    p.add_argument("--pp-size", type=int, default=1,
+                   help="pipeline-parallel stages (stage-ring serving; "
+                        "composes with --tp-size/--ep-size)")
     p.add_argument("--devices", default="",
-                   help="the device of each tp*ep rank, comma-separated in "
-                        "rank order (may repeat one device); default: the "
-                        "first tp*ep CUDA devices, or the CPU with --device cpu")
+                   help="the device of each pp*tp*ep rank, comma-separated "
+                        "in rank order (may repeat one device); default: the "
+                        "first pp*tp*ep CUDA devices, or the CPU with "
+                        "--device cpu")
     p.add_argument("--dtype", default=None,
                    help="parameter/KV dtype (default: the model config's)")
     p.add_argument("--drain-timeout", type=float, default=30.0)
@@ -1347,7 +1388,26 @@ def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
                    help="CA bundle for the outbound legs (implies "
                         "verification against this bundle)")
     args = p.parse_args(argv)
+    if args.backend not in BACKENDS:
+        p.error(f"--backend {args.backend}: the PyTorch port has "
+                f"{' and '.join(BACKENDS)} ('tpu' is the JAX package's engine)")
+    device = args.device
+    if args.platform is not None:
+        if args.platform not in _PLATFORMS:
+            p.error(f"--platform {args.platform}: the PyTorch port runs on "
+                    f"{', '.join(_PLATFORMS)}")
+        device = _PLATFORMS[args.platform]
+    if args.pp_size > 1 and args.backend == "torch":
+        from ..models.configs import get_config
+        from ..parallel.pp_serve import validate_pp
+
+        try:
+            validate_pp(get_config(args.model), args.pp_size, args.tp_size,
+                        args.ep_size)
+        except ValueError as e:
+            p.error(str(e))
     cfg = EngineConfig(model=args.model, served_model_name=args.served_model_name,
+                       backend=args.backend,
                        checkpoint_path=args.checkpoint, port=args.port,
                        host=args.host, max_batch=args.max_batch,
                        max_model_len=args.max_model_len,
@@ -1356,8 +1416,9 @@ def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
                        prefill_chunk=args.prefill_chunk,
                        kv_events_port=args.kv_events_port, seed=args.seed,
                        role=args.role, warmup=args.warmup,
-                       device=args.device, dtype=args.dtype,
+                       device=device, dtype=args.dtype,
                        tp_size=args.tp_size, ep_size=args.ep_size,
+                       pp_size=args.pp_size,
                        devices=args.devices,
                        secure_serving=args.secure_serving,
                        cert_path=args.cert_path,

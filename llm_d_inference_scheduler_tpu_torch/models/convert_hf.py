@@ -47,7 +47,7 @@ from typing import Any
 import torch
 
 from ..parallel import serve as par
-from ..parallel.shardings import param_splits, put_split, split_tensor
+from ..parallel.shardings import param_splits, put_split
 from ..utils.device import resolve_device, torch_dtype
 from . import safetensors_io
 from .configs import ModelConfig
@@ -147,12 +147,13 @@ def convert_state_dict(state_dict: dict[str, torch.Tensor], cfg: ModelConfig,
     """An HF Llama/Mixtral/Qwen3 state dict as the port's params on
     ``device`` in ``dtype`` (default: the config's), one tensor moved at a
     time into the preallocated stacked tensors. With ``layout`` each tensor
-    is split as it is read into every rank's preallocated shard
-    (``ShardedParams``; no device holds the whole model)."""
+    is split as it is read (by stage first, then over tp/ep) into every
+    rank's preallocated shard (``ShardedParams``; no device holds the whole
+    model)."""
     dt = torch_dtype(dtype or cfg.dtype)
     sharded = layout is not None
     if sharded:
-        par.validate_tp(cfg, layout.tp, layout.ep)
+        par.validate_degrees(cfg, layout.tp, layout.ep, layout.pp)
     else:
         layout = par.ServeLayout((resolve_device(device),))
     device = layout.devices[0]
@@ -160,13 +161,14 @@ def convert_state_dict(state_dict: dict[str, torch.Tensor], cfg: ModelConfig,
     shapes = param_shapes(cfg)
     splits = param_splits(cfg)
     ranks = list(layout.ranks())
-
-    def local(name, tr, er):
-        full = torch.empty(shapes[name], device="meta")
-        return split_tensor(full, splits[name], tr, layout.tp, er, layout.ep).shape
-
-    outs = [{name: torch.empty(local(name, tr, er), dtype=dt, device=layout.devices[r])
-             for name in shapes} for r, tr, er in ranks]
+    # Each rank's share of each tensor (its stage's layers, split over
+    # tp/ep; the embedding, final norm and head on stage 0 only).
+    outs: list[dict[str, torch.Tensor]] = [{} for _ in ranks]
+    for name, shape in shapes.items():
+        views = par.rank_views(name, torch.empty(shape, device="meta"), cfg, layout)
+        for (r, _, _), out, v in zip(ranks, outs, views):
+            if v is not None:
+                out[name] = torch.empty(v.shape, dtype=dt, device=layout.devices[r])
 
     def get(key):
         if key not in state_dict:
@@ -181,8 +183,17 @@ def convert_state_dict(state_dict: dict[str, torch.Tensor], cfg: ModelConfig,
         if tuple(src.shape) != want:  # copy_ would broadcast a wrong shape
             raise ValueError(f"{key} is {tuple(get(key).shape)}, which does not "
                              f"fit {want} (linear: {linear})")
-        for (_, tr, er), out in zip(ranks, outs):
-            put_split(out[name], index, src, shapes[name], splits[name], tr,
+        for (r, tr, er), out in zip(ranks, outs):
+            if name not in out:
+                continue
+            idx, full = index, shapes[name]
+            if name.startswith("layers."):
+                # The stage's slab: layer i lands at i - first, or nowhere.
+                first, n = par.stage_layers(cfg.n_layers, layout.stage_of(r), layout.pp)
+                if not first <= index[0] < first + n:
+                    continue
+                idx, full = (index[0] - first, *index[1:]), (n, *full[1:])
+            put_split(out[name], idx, src, full, splits[name], tr,
                       layout.tp, er, layout.ep)
 
     for i in range(cfg.n_layers):
@@ -210,9 +221,10 @@ def convert_state_dict(state_dict: dict[str, torch.Tensor], cfg: ModelConfig,
         put("lm_head", (), "lm_head.weight", linear=True)
     else:  # tied embeddings (a rank's vocab columns are its embed rows)
         for out in outs:
-            out["lm_head"].copy_(out["embed"].t())
+            if "lm_head" in out:
+                out["lm_head"].copy_(out["embed"].t())
     if sharded:
-        return par.from_rank_lists({name: [out[name] for out in outs]
+        return par.from_rank_lists({name: [out.get(name) for out in outs]
                                     for name in shapes}, layout)
     return nested_params(outs[0])
 

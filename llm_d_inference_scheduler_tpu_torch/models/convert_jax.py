@@ -4,8 +4,8 @@ The two packages share one layout (same keys, layers stacked ``[L, ...]``,
 matmul weights ``[in, out]``), so conversion is a leaf-wise copy. The input
 is the pytree as numpy arrays (``jax.tree.map(np.asarray, params)``), which
 keeps this module free of JAX; the tests use it to give both stacks the same
-weights. A sharded engine (``tp_size``/``ep_size`` > 1) splits the full
-weights this returns (``parallel.serve.shard_params``).
+weights. A sharded or staged engine (``tp_size``/``ep_size``/``pp_size`` >
+1) splits the full weights this returns (``parallel.serve.shard_params``).
 """
 
 from __future__ import annotations

@@ -17,13 +17,15 @@
   dispatches on the parameters, so every path serves both families.
   ``cfg.moe_impl == "grouped"`` takes the grouped path (kernel K2), else the
   dense-over-experts ``_moe_ffn``.
-- Tensor/expert parallel (``parallel/serve.py``): every function also takes
-  ``ShardedParams``, one dict per rank. Attention runs per ``tp`` rank on
-  its local heads and its own pages (then a list of per-rank page tensors),
-  with one sum after ``wo`` and one after ``w2``; the embedding is a masked
-  lookup per vocab shard and a sum, the logits are gathered. One rank runs
-  the same code with no sum and no gather: single-device serving is that
-  case.
+- Tensor/expert/pipeline parallel (``parallel/serve.py``): every function
+  also takes ``ShardedParams``, one dict per rank. The ranks form pipeline
+  stages (one without ``pp``), each holding its slab of the layers and run
+  in turn; within a stage attention runs per ``tp`` rank on its local
+  heads and its own pages (then a list of page tensors, one per (stage,
+  tp) rank), with one sum after ``wo`` and one after ``w2``; the embedding
+  is a masked lookup per vocab shard and a sum, the logits are gathered,
+  both on stage 0. One rank runs the same code with no sum, no gather and
+  no hop: single-device serving is that case.
 """
 
 from __future__ import annotations
@@ -55,9 +57,9 @@ def init_params(cfg: ModelConfig, device: str | torch.device = "cuda",
     MoE configs get expert-stacked FFN weights and a router. With ``layout``
     the same full weights are drawn one tensor at a time on the layout's
     first device and split into its shards (``ShardedParams``): the
-    counterpart of the JAX ``init_sharded_params``."""
+    counterpart of the JAX ``init_sharded_params`` and ``init_pp_params``."""
     if layout is not None:
-        par.validate_tp(cfg, layout.tp, layout.ep)
+        par.validate_degrees(cfg, layout.tp, layout.ep, layout.pp)
         device = layout.devices[0]
     device = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
@@ -199,38 +201,19 @@ def _qkv(cfg: ModelConfig, lp: Params, x: torch.Tensor, cos: torch.Tensor,
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-class _Model:
-    """The parameters as ranks (one for a plain dict) with per-layer views,
-    and the sharded model's three collective steps; ``x`` (the residual
-    stream) lives on the first rank's device."""
+class _Stage:
+    """One pipeline stage's ranks (all of them without stages) with
+    per-layer views, and the sharded layer's two collective steps; ``x``
+    (the residual stream) lives on the stage's first rank's device."""
 
-    def __init__(self, params):
-        if isinstance(params, par.ShardedParams):
-            self.layout, shards = params.layout, params.shards
-        else:
-            self.layout, shards = par.single_layout(params), [params]
-        self.shards = shards
-        self.tp, self.ep = self.layout.tp, self.layout.ep
-        self.dev = self.layout.devices[0]
-        self.layers = list(zip(*(layer_params(p) for p in shards)))  # [L][rank]
+    def __init__(self, layout: par.ServeLayout, shards: list[Params]):
+        self.layout, self.shards = layout, shards
+        self.tp, self.ep = layout.tp, layout.ep
+        self.dev = layout.devices[0]
+        self.layers = list(zip(*(layer_params(p) for p in shards)))  # [L/pp][rank]
 
     def tp_shard(self, t: int) -> Params:
         return self.shards[t * self.ep]
-
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Token embeddings: a masked lookup in each vocab shard, summed
-        (the other shards add exact zeros)."""
-        if self.tp == 1:
-            return self.shards[0]["embed"][tokens.long()]
-        parts = []
-        for t in range(self.tp):
-            emb = self.tp_shard(t)["embed"]
-            n = emb.shape[0]
-            ids = tokens.long().to(emb.device) - t * n
-            ok = (ids >= 0) & (ids < n)
-            rows = emb[ids.clamp(0, n - 1)]
-            parts.append(torch.where(ok[..., None], rows, torch.zeros_like(rows)))
-        return par.reduce_sum(parts, self.dev)
 
     def layer(self, cfg: ModelConfig, lps, x: torch.Tensor, attend) -> torch.Tensor:
         """One decoder layer: ``attend(t, lp, x_t)`` gives tp rank t's
@@ -248,11 +231,55 @@ class _Model:
             [_ffn(cfg, lps[r], h.to(self.layout.devices[r]), e, self.ep)
              for r, _, e in self.layout.ranks()], self.dev)
 
+
+class _Model:
+    """The parameters as ranks (one for a plain dict), grouped into
+    pipeline stages (one without ``pp``). The embedding, the final norm and
+    the head are stage 0's: the residual stream enters and leaves there, on
+    the first rank's device."""
+
+    def __init__(self, params):
+        if isinstance(params, par.ShardedParams):
+            self.layout, shards = params.layout, params.shards
+        else:
+            self.layout, shards = par.single_layout(params), [params]
+        self.tp, self.ep, self.pp = self.layout.tp, self.layout.ep, self.layout.pp
+        n = self.tp * self.ep
+        self.stages = [_Stage(self.layout.stage(s), shards[s * n:(s + 1) * n])
+                       for s in range(self.pp)]
+        self.head = self.stages[0]
+        self.dev = self.head.dev
+
+    def stage_pages(self, pages, s: int) -> list[torch.Tensor]:
+        """Stage ``s``'s page tensors, one per tp rank."""
+        return _page_list(pages)[s * self.tp:(s + 1) * self.tp]
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings: a masked lookup in each vocab shard, summed
+        (the other shards add exact zeros)."""
+        st = self.head
+        if self.tp == 1:
+            return st.shards[0]["embed"][tokens.long()]
+        parts = []
+        for t in range(self.tp):
+            emb = st.tp_shard(t)["embed"]
+            n = emb.shape[0]
+            ids = tokens.long().to(emb.device) - t * n
+            ok = (ids >= 0) & (ids < n)
+            rows = emb[ids.clamp(0, n - 1)]
+            parts.append(torch.where(ok[..., None], rows, torch.zeros_like(rows)))
+        return par.reduce_sum(parts, self.dev)
+
+    def final_norm(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        """The final RMSNorm, on stage 0's device (where the ring wraps)."""
+        return rms_norm(x.to(self.dev), self.head.shards[0]["final_norm"], cfg.norm_eps)
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """f32 logits of final-norm hidden states, gathered over the vocab
         shards."""
+        st = self.head
         return par.gather_last(
-            [(x.to(self.layout.tp_device(t)) @ self.tp_shard(t)["lm_head"]).float()
+            [(x.to(st.layout.tp_device(t)) @ st.tp_shard(t)["lm_head"]).float()
              for t in range(self.tp)], self.dev)
 
 
@@ -281,12 +308,15 @@ def forward(
     """Full-sequence forward (prefill). Returns (logits [B, S, V] f32 — or
     the final-norm hidden states [B, S, D] as f32 with ``want_hidden`` —,
     (K, V) each [L, B, S, Hkv, Dh] if ``want_kv``; with ``ShardedParams``
-    K and V are lists over the tp ranks of [L, B, S, Hkv/tp, Dh]).
+    K and V are lists over the (stage, tp) ranks of [L/pp, B, S, Hkv/tp,
+    Dh], index ``s * tp + t``).
 
     Multimodal prefill (E/P/D): ``mm_embeds`` replace the token embeddings
     at ``mm_positions`` (encoder outputs spliced in at placeholder tokens),
     cast to the embeddings' dtype; a position ``>= S`` (a caller's padding)
-    is dropped, as the JAX scatter's ``mode="drop"`` drops it."""
+    is dropped, as the JAX scatter's ``mode="drop"`` drops it. The splice
+    happens before stage 0. Each stage runs its layers in turn, the
+    activation moving to the next stage's device (the JAX ``ppermute``)."""
     m = _Model(params)
     B, S = tokens.shape
     if positions is None:
@@ -296,26 +326,29 @@ def forward(
     x = m.embed(tokens)
     if mm_embeds is not None:
         x = _splice(x, mm_embeds, mm_positions)
-    per_tp = []
-    for t in range(m.tp):
-        dev = m.layout.tp_device(t)
-        per_tp.append((cos.to(dev), sin.to(dev), positions.to(dev),
-                       None if kv_valid is None else kv_valid.to(dev)))
-    ks: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
-    vs: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
+    n = m.pp * m.tp
+    ks: list[list[torch.Tensor]] = [[] for _ in range(n)]
+    vs: list[list[torch.Tensor]] = [[] for _ in range(n)]
+    for s, st in enumerate(m.stages):
+        per_tp = []
+        for t in range(m.tp):
+            dev = st.layout.tp_device(t)
+            per_tp.append((cos.to(dev), sin.to(dev), positions.to(dev),
+                           None if kv_valid is None else kv_valid.to(dev)))
 
-    def attend(t, lp, xt):
-        c, s_, pos, valid = per_tp[t]
-        q, k, v = _qkv(cfg, lp, xt, c, s_)
-        if want_kv:
-            ks[t].append(k)
-            vs[t].append(v)
-        return causal_attention(q, k, v, q_positions=pos, kv_positions=pos,
-                                kv_valid=valid)
+        def attend(t, lp, xt):
+            c, s_, pos, valid = per_tp[t]
+            q, k, v = _qkv(cfg, lp, xt, c, s_)
+            if want_kv:
+                ks[s * m.tp + t].append(k)
+                vs[s * m.tp + t].append(v)
+            return causal_attention(q, k, v, q_positions=pos, kv_positions=pos,
+                                    kv_valid=valid)
 
-    for lps in m.layers:
-        x = m.layer(cfg, lps, x, attend)
-    x = rms_norm(x, m.shards[0]["final_norm"], cfg.norm_eps)
+        x = x.to(st.dev)
+        for lps in st.layers:
+            x = st.layer(cfg, lps, x, attend)
+    x = m.final_norm(x, cfg)
     kv = None
     if want_kv:
         kv = ([torch.stack(k) for k in ks], [torch.stack(v) for v in vs])
@@ -343,51 +376,44 @@ def _splice(x: torch.Tensor, mm_embeds: torch.Tensor,
     return out[:, :S]
 
 
-def decode_step(
-    params,
-    cfg: ModelConfig,
-    tokens: torch.Tensor,        # [B] current input token per sequence
-    positions: torch.Tensor,     # [B] 0-based position of that token
-    k_pages,                     # [L, N_blocks, block, Hkv, Dh] (a list per tp rank)
-    v_pages,
-    block_tables: torch.Tensor,  # [B, max_blocks] int32
-    paged_attention: Callable[..., torch.Tensor] = paged_decode_attention_cuda,
-) -> tuple[torch.Tensor, Any, Any]:
-    """One decode step with paged KV; returns (logits [B, V] f32, k_pages,
-    v_pages), the pages updated in place.
+def decode_slab(cfg: ModelConfig, st: _Stage, x: torch.Tensor, kps, vps,
+                block_tables: torch.Tensor, positions: torch.Tensor,
+                paged_attention: Callable[..., torch.Tensor] = paged_decode_attention_cuda,
+                ) -> torch.Tensor:
+    """One stage's layers for one decode token of every lane in ``x`` [B,
+    1, D] (the JAX ``_decode_slab``): returns the stage's output on its
+    device, the stage's pages (``kps``/``vps``, one per tp rank) written in
+    place.
 
     The layer loop only reads the pages; the current token attends to itself
-    through the ``cur_k``/``cur_v`` column, and all layers' current-token KV
+    through the ``cur_k``/``cur_v`` column, and the stage's current-token KV
     is written afterwards with one scatter per page tensor. Inactive lanes
     point their block table at the trash block 0. A lane that has passed its
     block table (a fused decode chunk keeps stepping a finished lane) writes
     through the table's last entry, clamped explicitly here (JAX clamps the
     gather index silently); the kernel bounds its page walk the same way.
-    With ``ShardedParams`` each tp rank attends over its own pages (one
-    kernel launch per rank and layer).
-    """
-    m = _Model(params)
-    kps, vps = _page_list(k_pages), _page_list(v_pages)
-    B = tokens.shape[0]
+    Each tp rank attends over its own pages (one kernel launch per rank and
+    layer)."""
+    B = x.shape[0]
     block = kps[0].shape[2]
     W = block_tables.shape[1]
-    Dh = cfg.head_dim
-    positions = positions.to(torch.int32)
-    cos, sin = rope_table(positions, Dh, cfg.rope_theta)     # [B, half]
+    positions = positions.to(st.dev, torch.int32)
+    block_tables = block_tables.to(st.dev)
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)  # [B, half]
     seq_lens = positions + 1
-    lane = torch.arange(B, device=tokens.device)
+    lane = torch.arange(B, device=st.dev)
     blk_idx = block_tables[lane, (positions // block).clamp(max=W - 1).long()].long()
     slot = (positions % block).long()
     per_tp = []
-    for t in range(m.tp):
+    for t in range(st.tp):
         dev = kps[t].device
         per_tp.append((cos[:, None].to(dev), sin[:, None].to(dev),
                        block_tables.to(dev), seq_lens.to(dev)))
 
-    x = m.embed(tokens)[:, None]                             # [B, 1, D]
-    k_cur: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
-    v_cur: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
-    for li, lps in enumerate(m.layers):
+    x = x.to(st.dev)
+    k_cur: list[list[torch.Tensor]] = [[] for _ in range(st.tp)]
+    v_cur: list[list[torch.Tensor]] = [[] for _ in range(st.tp)]
+    for li, lps in enumerate(st.layers):
         def attend(t, lp, xt):
             c, s_, tab, lens = per_tp[t]
             q, k, v = _qkv(cfg, lp, xt, c, s_)
@@ -397,15 +423,37 @@ def decode_step(
             v_cur[t].append(v)
             return attn[:, None]
 
-        x = m.layer(cfg, lps, x, attend)
-    for t in range(m.tp):
+        x = st.layer(cfg, lps, x, attend)
+    for t in range(st.tp):
         dev = kps[t].device
         bi, si = blk_idx.to(dev), slot.to(dev)
         kps[t][:, bi, si] = torch.stack(k_cur[t]).to(kps[t].dtype)
         vps[t][:, bi, si] = torch.stack(v_cur[t]).to(vps[t].dtype)
+    return x
 
-    x = rms_norm(x[:, 0], m.shards[0]["final_norm"], cfg.norm_eps)
-    return m.logits(x), k_pages, v_pages
+
+def decode_step(
+    params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,        # [B] current input token per sequence
+    positions: torch.Tensor,     # [B] 0-based position of that token
+    k_pages,                     # [L, N_blocks, block, Hkv, Dh] (a list per (stage, tp) rank)
+    v_pages,
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    paged_attention: Callable[..., torch.Tensor] = paged_decode_attention_cuda,
+) -> tuple[torch.Tensor, Any, Any]:
+    """One decode step with paged KV; returns (logits [B, V] f32, k_pages,
+    v_pages), the pages updated in place. Every lane's token goes through
+    stage 0, 1, ..., then the head (``decode_slab`` per stage): with
+    stages, the broadcast ring of the JAX ``_ring_decode_step``, which runs
+    only the stage whose turn it is."""
+    m = _Model(params)
+    x = m.embed(tokens)[:, None]                             # [B, 1, D]
+    for s, st in enumerate(m.stages):
+        x = decode_slab(cfg, st, x, m.stage_pages(k_pages, s),
+                        m.stage_pages(v_pages, s), block_tables, positions,
+                        paged_attention)
+    return m.logits(m.final_norm(x[:, 0], cfg)), k_pages, v_pages
 
 
 def prefill_with_prefix(
@@ -414,7 +462,7 @@ def prefill_with_prefix(
     tokens: torch.Tensor,        # [1, S] suffix tokens (may be padded)
     suffix_len: torch.Tensor,    # [1] valid suffix tokens
     prefix_len: torch.Tensor,    # [1] tokens already present in the pages
-    k_pages,                     # [L, N, block, Hkv, Dh] (a list per tp rank)
+    k_pages,                     # [L, N, block, Hkv, Dh] (a list per (stage, tp) rank)
     v_pages,
     block_table_row: torch.Tensor,  # [1, max_blocks] full table (KV scatter)
     prior_table_row: torch.Tensor | None = None,  # [1, P] gather window
@@ -423,6 +471,8 @@ def prefill_with_prefix(
 
     The suffix attends to the cached prefix gathered from the pages plus
     itself causally; its KV is written into the pages at prefix_len + t.
+    With stages, each stage reads the prior KV of its layers from its own
+    pages and writes its own (the JAX ``make_pp_prefill_with_prefix``).
     Returns (last-token logits [1, V] f32, k_pages, v_pages), pages updated
     in place."""
     m = _Model(params)
@@ -448,45 +498,45 @@ def prefill_with_prefix(
     kv_positions = torch.cat([prior_pos, positions], dim=1)
     kv_valid = torch.cat([prior_valid, suffix_valid], dim=1)
     prior = prior_table_row[0].long()
-    per_tp = []
-    for t in range(m.tp):
-        d = kps[t].device
-        per_tp.append(tuple(a.to(d) for a in (cos, sin, positions, kv_positions,
-                                              kv_valid, prior)))
-
-    x = m.embed(tokens)
-    k_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
-    v_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
-    for li, lps in enumerate(m.layers):
-        def attend(t, lp, xt):
-            c, s_, pos, kv_pos, valid, pr = per_tp[t]
-            q, k, v = _qkv(cfg, lp, xt, c, s_)
-            Hkv = k.shape[2]
-            k_prior = kps[t][li][pr].reshape(1, T, Hkv, Dh)
-            v_prior = vps[t][li][pr].reshape(1, T, Hkv, Dh)
-            k_new[t].append(k[0])
-            v_new[t].append(v[0])
-            return causal_attention(q, torch.cat([k_prior, k], dim=1),
-                                    torch.cat([v_prior, v], dim=1),
-                                    q_positions=pos, kv_positions=kv_pos,
-                                    kv_valid=valid)
-
-        x = m.layer(cfg, lps, x, attend)
-
-    # Scatter suffix KV at offset positions (padding -> trash block 0).
+    # Suffix KV goes to offset positions (padding -> trash block 0).
     tgt = prefix_len[0] + t_idx
     valid = t_idx < suffix_len[0]
     table_blk = block_table_row[0, (tgt // block).clamp(max=W - 1).long()]
     blk_for_t = torch.where(valid, table_blk, torch.zeros_like(table_blk)).long()
     slot_for_t = torch.where(valid, tgt % block, torch.zeros_like(tgt)).long()
-    for t in range(m.tp):
-        d = kps[t].device
-        bi, si = blk_for_t.to(d), slot_for_t.to(d)
-        kps[t][:, bi, si] = torch.stack(k_new[t]).to(kps[t].dtype)
-        vps[t][:, bi, si] = torch.stack(v_new[t]).to(vps[t].dtype)
 
-    x = rms_norm(x, m.shards[0]["final_norm"], cfg.norm_eps)
-    last = x[0, (suffix_len[0] - 1).long()][None]
+    x = m.embed(tokens)
+    for s, st in enumerate(m.stages):
+        skp, svp = m.stage_pages(kps, s), m.stage_pages(vps, s)
+        per_tp = [tuple(a.to(kp.device) for a in (cos, sin, positions, kv_positions,
+                                                   kv_valid, prior))
+                  for kp in skp]
+        k_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
+        v_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
+        x = x.to(st.dev)
+        for li, lps in enumerate(st.layers):
+            def attend(t, lp, xt):
+                c, s_, pos, kv_pos, ok, pr = per_tp[t]
+                q, k, v = _qkv(cfg, lp, xt, c, s_)
+                Hkv = k.shape[2]
+                k_prior = skp[t][li][pr].reshape(1, T, Hkv, Dh)
+                v_prior = svp[t][li][pr].reshape(1, T, Hkv, Dh)
+                k_new[t].append(k[0])
+                v_new[t].append(v[0])
+                return causal_attention(q, torch.cat([k_prior, k], dim=1),
+                                        torch.cat([v_prior, v], dim=1),
+                                        q_positions=pos, kv_positions=kv_pos,
+                                        kv_valid=ok)
+
+            x = st.layer(cfg, lps, x, attend)
+        for t in range(m.tp):
+            d = skp[t].device
+            bi, si = blk_for_t.to(d), slot_for_t.to(d)
+            skp[t][:, bi, si] = torch.stack(k_new[t]).to(skp[t].dtype)
+            svp[t][:, bi, si] = torch.stack(v_new[t]).to(svp[t].dtype)
+
+    x = m.final_norm(x, cfg)
+    last = x[0, (suffix_len[0] - 1).long().to(x.device)][None]
     return m.logits(last), k_pages, v_pages
 
 

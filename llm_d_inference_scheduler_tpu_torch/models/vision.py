@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -118,3 +119,23 @@ def encode_image(params: dict, cfg: VisionConfig, pixels: torch.Tensor) -> torch
         x = x + F.gelu(h @ lps["w1"][i], approximate="tanh") @ lps["w2"][i]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["proj"]
+
+
+
+def build_tower(out_dim: int, seed: int, device: torch.device) -> tuple[VisionConfig, dict]:
+    """A served model's E/P/D tower: ``VIT_TINY`` projecting into the
+    model's ``d_model`` (so its rows splice into that model's prefill), its
+    weights drawn from ``seed`` on ``device``."""
+    vcfg = dataclasses.replace(VIT_TINY, out_dim=out_dim)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return vcfg, init_vision_params(vcfg, device, gen)
+
+
+def encode_to_host(vcfg: VisionConfig, params: dict, pixels: np.ndarray,
+                   device: torch.device) -> np.ndarray:
+    """The tower over ``pixels`` [N, H, W, C] as host f32 embeddings
+    [N * n_patches, out_dim], item after item."""
+    px = torch.from_numpy(np.ascontiguousarray(pixels, np.float32)).to(device)
+    with torch.no_grad():
+        out = encode_image(params, vcfg, px)
+    return out.reshape(-1, out.shape[-1]).float().cpu().numpy()

@@ -1,18 +1,24 @@
-"""Tensor- and expert-parallel serving: shards on devices, and the two
-collectives of the sharded model.
+"""Tensor-, expert- and pipeline-parallel serving: shards on devices, and
+the two collectives of the sharded model.
 
-Port of ``llm_d_inference_scheduler_tpu/parallel/serve.py``. The JAX engine
-runs one program over a ``(dp, tp, ep)`` mesh and lets XLA insert the sums.
-Here one process drives every shard, as the JAX single controller does:
+Port of ``llm_d_inference_scheduler_tpu/parallel/serve.py`` (and of the
+layout half of ``parallel/pp_serve.py``). The JAX engine runs one program
+over a ``(dp, tp, ep)`` or ``(pp, tp, ep)`` mesh and lets XLA insert the
+sums. Here one process drives every shard, as the JAX single controller
+does:
 
-- ``ServeLayout`` names the device of each rank ``r = t * ep + e`` (the
-  mesh's ``(tp, ep)`` order). An explicit device list may name one device
-  more than once: the CPU tests lay every shard on ``"cpu"``, and one card
-  can hold two shards, so the code that many cards would run is checked on
-  one.
-- Attention runs once per ``tp`` rank, on the device of its first ``ep``
-  rank, over that rank's KV pages ``[L, N, block, Hkv/tp, D]`` (the JAX
-  ``KV_PAGE_SPEC``). The ``ep`` ranks of a ``tp`` rank share those pages:
+- ``ServeLayout`` names the device of each rank ``r = (s * tp + t) * ep +
+  e`` (the meshes' ``(pp, tp, ep)`` order; ``pp = 1`` without stages). An
+  explicit device list may name one device more than once: the CPU tests
+  lay every shard on ``"cpu"``, and one card can hold two shards, so the
+  code that many cards would run is checked on one.
+- Stage ``s`` holds layers ``[s * L/pp, (s + 1) * L/pp)`` of every stacked
+  tensor, split within the stage over ``tp``/``ep`` as without stages; the
+  embedding, the final norm and the head live on stage 0 only (the JAX
+  mesh replicates them over ``pp``; the ring enters and wraps back there).
+- Attention runs once per (stage, ``tp`` rank), on the device of its first
+  ``ep`` rank, over that rank's KV pages ``[L/pp, N, block, Hkv/tp, D]``
+  (the JAX ``KV_PAGE_SPEC`` and ``PAGE_SPEC``). The ``ep`` ranks of a ``tp`` rank share those pages:
   the JAX mesh keeps an identical copy on each, which one controller has
   no reason to compute twice.
 - ``reduce_sum`` adds the row-parallel partials of every rank in rank
@@ -38,24 +44,36 @@ Params = dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class ServeLayout:
-    devices: tuple[torch.device, ...]  # rank r = t * ep + e
+    devices: tuple[torch.device, ...]  # rank r = (s * tp + t) * ep + e
     tp: int = 1
     ep: int = 1
+    pp: int = 1
 
     def ranks(self) -> Iterable[tuple[int, int, int]]:
-        """(rank, tp rank, ep rank) in rank order."""
-        return ((r, r // self.ep, r % self.ep) for r in range(len(self.devices)))
+        """(rank, tp rank, ep rank) in rank order (``stage_of`` gives the
+        stage)."""
+        return ((r, (r // self.ep) % self.tp, r % self.ep)
+                for r in range(len(self.devices)))
 
-    def tp_device(self, t: int) -> torch.device:
-        """The device that runs ``tp`` rank ``t``'s attention and holds its
-        KV pages."""
-        return self.devices[t * self.ep]
+    def stage_of(self, r: int) -> int:
+        return r // (self.tp * self.ep)
+
+    def tp_device(self, t: int, s: int = 0) -> torch.device:
+        """The device that runs stage ``s``'s ``tp`` rank ``t``'s attention
+        and holds its KV pages."""
+        return self.devices[(s * self.tp + t) * self.ep]
+
+    def stage(self, s: int) -> "ServeLayout":
+        """Stage ``s``'s ranks as a layout of their own (``pp = 1``)."""
+        n = self.tp * self.ep
+        return ServeLayout(self.devices[s * n:(s + 1) * n], self.tp, self.ep)
 
 
 @dataclasses.dataclass
 class ShardedParams:
     """The model's parameters as one dict per rank (``param_shapes``' keys,
-    each tensor that rank's shard)."""
+    each tensor that rank's shard; a rank of a later stage holds only its
+    layers)."""
     layout: ServeLayout
     shards: list[Params]
 
@@ -74,24 +92,27 @@ def validate_tp(cfg, tp: int, ep: int = 1) -> None:
             raise ValueError(f"ep={ep} does not divide n_experts={cfg.n_experts}")
 
 
-def make_serve_layout(devices=None, tp: int = 1, ep: int = 1) -> ServeLayout:
-    """The layout of ``tp * ep`` ranks on ``devices`` (rank order). By
-    default the first ``tp * ep`` CUDA devices; an explicit list must have
-    one entry per rank and may repeat a device."""
-    if tp < 1 or ep < 1:
-        raise ValueError(f"tp={tp} and ep={ep} must be >= 1")
-    n = tp * ep
+def make_serve_layout(devices=None, tp: int = 1, ep: int = 1,
+                      pp: int = 1) -> ServeLayout:
+    """The layout of ``pp * tp * ep`` ranks on ``devices`` (rank order). By
+    default the first ``pp * tp * ep`` CUDA devices; an explicit list must
+    have one entry per rank and may repeat a device."""
+    if tp < 1 or ep < 1 or pp < 1:
+        raise ValueError(f"tp={tp}, ep={ep} and pp={pp} must be >= 1")
+    n = pp * tp * ep
+    what = f"tp*ep={tp}*{ep}" if pp == 1 else f"pp*tp*ep={pp}*{tp}*{ep}"
     if devices is None:
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if have < n:
-            raise ValueError(f"tp*ep={tp}*{ep} needs {n} CUDA devices, found "
+            raise ValueError(f"{what} needs {n} CUDA devices, found "
                              f"{have}; pass an explicit device list")
         devices = [f"cuda:{i}" for i in range(n)]
     devices = list(devices)
     if len(devices) != n:
-        raise ValueError(f"{len(devices)} devices given for tp*ep={tp}*{ep}: "
+        raise ValueError(f"{len(devices)} devices given for {what}: "
                          "name one device per rank (a device may repeat)")
-    return ServeLayout(tuple(_indexed(resolve_device(d)) for d in devices), tp, ep)
+    return ServeLayout(tuple(_indexed(resolve_device(d)) for d in devices),
+                       tp, ep, pp)
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -106,32 +127,51 @@ def single_layout(params: Params) -> ServeLayout:
     return ServeLayout((params["embed"].device,))
 
 
+def stage_layers(n_layers: int, s: int, pp: int) -> tuple[int, int]:
+    """(first layer, layer count) of stage ``s``."""
+    n = n_layers // pp
+    return s * n, n
+
+
 def rank_views(name: str, t: torch.Tensor, cfg, layout: ServeLayout
-               ) -> list[torch.Tensor]:
-    """Parameter ``name``'s shard of ``t`` for every rank: views, no copy."""
+               ) -> list[torch.Tensor | None]:
+    """Parameter ``name``'s shard of ``t`` for every rank: views, no copy;
+    None for a rank that does not hold it (the embedding, the final norm
+    and the head on a later stage)."""
     split = param_splits(cfg)[name]
-    return [split_tensor(t, split, tr, layout.tp, er, layout.ep)
-            for _, tr, er in layout.ranks()]
+    views: list[torch.Tensor | None] = []
+    for r, tr, er in layout.ranks():
+        s = layout.stage_of(r)
+        if name.startswith("layers."):
+            views.append(split_tensor(t.narrow(0, *stage_layers(t.shape[0], s, layout.pp)),
+                                      split, tr, layout.tp, er, layout.ep))
+        else:
+            views.append(split_tensor(t, split, tr, layout.tp, er, layout.ep)
+                         if s == 0 else None)
+    return views
 
 
 def split_to_ranks(name: str, t: torch.Tensor, cfg, layout: ServeLayout
-                   ) -> list[torch.Tensor]:
+                   ) -> list[torch.Tensor | None]:
     """Parameter ``name``'s shard for every rank, each on its rank's device.
     Where every rank shares one device, a shard on ``t``'s device is a view
     of ``t``; across devices each shard owns its memory, so ``t`` can go."""
     share = len(set(layout.devices)) == 1
-    return [s if share and s.device == dev
+    return [s if s is None or share and s.device == dev
             else s.clone() if s.device == dev else s.to(dev)
             for s, dev in zip(rank_views(name, t, cfg, layout), layout.devices)]
 
 
-def from_rank_lists(flat: dict[str, list[torch.Tensor]], layout: ServeLayout
+def from_rank_lists(flat: dict[str, list[torch.Tensor | None]], layout: ServeLayout
                     ) -> ShardedParams:
-    """``ShardedParams`` from flat name -> per-rank tensors."""
+    """``ShardedParams`` from flat name -> per-rank tensors (None where a
+    rank holds no such tensor)."""
     shards: list[Params] = []
     for r in range(len(layout.devices)):
         p: Params = {"layers": {}}
         for name, parts in flat.items():
+            if parts[r] is None:
+                continue
             if name.startswith("layers."):
                 p["layers"][name[len("layers."):]] = parts[r]
             else:
@@ -140,11 +180,22 @@ def from_rank_lists(flat: dict[str, list[torch.Tensor]], layout: ServeLayout
     return ShardedParams(layout, shards)
 
 
+def validate_degrees(cfg, tp: int = 1, ep: int = 1, pp: int = 1) -> None:
+    """``validate_pp``'s verdicts with stages, else ``validate_tp``'s (the
+    JAX engine's choice)."""
+    if pp > 1:
+        from .pp_serve import validate_pp
+
+        validate_pp(cfg, pp, tp, ep)
+    else:
+        validate_tp(cfg, tp, ep)
+
+
 def shard_params(params: Params, cfg, layout: ServeLayout) -> ShardedParams:
     """Split full parameters into ``layout``'s shards, one tensor at a
     time. On a device that already holds the full tensor a shard is a view
     of it: a sharded engine and a single-device one can share weights."""
-    validate_tp(cfg, layout.tp, layout.ep)
+    validate_degrees(cfg, layout.tp, layout.ep, layout.pp)
     flat = {k: v for k, v in params.items() if k != "layers"}
     flat |= {f"layers.{k}": v for k, v in params["layers"].items()}
     return from_rank_lists({name: split_to_ranks(name, t, cfg, layout)
@@ -153,14 +204,13 @@ def shard_params(params: Params, cfg, layout: ServeLayout) -> ShardedParams:
 
 def alloc_sharded_pages(cfg, layout: ServeLayout, n_blocks: int,
                         dtype: torch.dtype) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
-    """Zeroed K and V pages per ``tp`` rank, ``[L, N, block, Hkv/tp, D]`` on
-    the rank's attention device."""
-    shape = (cfg.n_layers, n_blocks, cfg.kv_block_size,
+    """Zeroed K and V pages per (stage, ``tp`` rank), ``[L/pp, N, block,
+    Hkv/tp, D]`` on the rank's attention device; index ``s * tp + t``."""
+    shape = (cfg.n_layers // layout.pp, n_blocks, cfg.kv_block_size,
              cfg.n_kv_heads // layout.tp, cfg.head_dim)
-    k = [torch.zeros(shape, dtype=dtype, device=layout.tp_device(t))
-         for t in range(layout.tp)]
-    v = [torch.zeros(shape, dtype=dtype, device=layout.tp_device(t))
-         for t in range(layout.tp)]
+    devs = [layout.tp_device(t, s) for s in range(layout.pp) for t in range(layout.tp)]
+    k = [torch.zeros(shape, dtype=dtype, device=d) for d in devs]
+    v = [torch.zeros(shape, dtype=dtype, device=d) for d in devs]
     return k, v
 
 
@@ -189,3 +239,17 @@ def join_kv_heads(parts: list[torch.Tensor]) -> torch.Tensor:
 def split_kv_heads(t: torch.Tensor, tp: int) -> list[torch.Tensor]:
     """The inverse of ``join_kv_heads``."""
     return list(t.chunk(tp, dim=-2)) if tp > 1 else [t]
+
+
+def join_pages(parts: list[torch.Tensor], tp: int) -> torch.Tensor:
+    """Per-(stage, ``tp`` rank) pages (host tensors, index ``s * tp + t``)
+    as the single-device layout ``[L, ..., Hkv, D]``: each stage's kv-head
+    shards joined in tp order, the stages joined along the layer axis."""
+    stages = [join_kv_heads(parts[i:i + tp]) for i in range(0, len(parts), tp)]
+    return stages[0] if len(stages) == 1 else torch.cat(stages, dim=0)
+
+
+def split_pages(t: torch.Tensor, tp: int, pp: int) -> list[torch.Tensor]:
+    """The inverse of ``join_pages``."""
+    stages = list(t.chunk(pp, dim=0)) if pp > 1 else [t]
+    return [part for st in stages for part in split_kv_heads(st, tp)]

@@ -121,8 +121,11 @@ def test_role_flag_reaches_health_as_on_the_jax_server(loop):
             _run(loop, s.stop(), 60)
     with pytest.raises(SystemExit):
         server_mod.parse_config(["--role=bogus"])
-    with pytest.raises(SystemExit):  # one backend: the flag stays unknown
-        server_mod.parse_config(["--backend=sim"])
+    # The port has the torch engine and the simulator; the JAX package's
+    # "tpu" engine is refused.
+    assert server_mod.parse_config(["--backend=sim"])[0].backend == "sim"
+    with pytest.raises(SystemExit):
+        server_mod.parse_config(["--backend=tpu"])
 
 
 # ---- directory models ------------------------------------------------------------
