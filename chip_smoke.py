@@ -116,6 +116,32 @@ Phases (any failure exits non-zero):
   12. sim     the CPU simulator from the parser (--backend sim --platform
                cpu): one completion, one streamed request, /health and
                /metrics, and no kernel launch
+  13. dist    multi-process engine groups (--dist-*), each of two processes
+               on the one card: the leader in this process on the phase's
+               weights, the follower from the server CLI (for a model
+               directory, this script's --dist-follower, which draws its
+               ranks' weights from the seed); the collective backend follows
+               the port's rule (gloo: two ranks share the card) and is
+               printed. Every group first holds K1 (and K2) to their plain
+               versions inside each process at its own shapes, and its
+               launches are counted in each process. 13a llama3-8b tp=2 over
+               two processes against the single-process tp=1 engine (phase
+               5's requests, tokens up to near-ties, the last-position
+               logits, K1 once per layer and step in each process, the
+               decode step's wall); 13d the drills: the follower killed
+               under a request (the request ends, /health 503 "degraded", a
+               new request ends at once), the leader of a CLI group killed
+               (the follower exits nonzero); 13e the device wire (CUDA IPC)
+               from a prefill server in its own process, then within this
+               process: route "device", the imported pages bitwise the
+               exporter's /kv bytes, tokens equal a monolithic engine's;
+               13f P/D from a tp=2 group into a tp=2 group over the host
+               shard wire and over the device wire (each process's imported
+               pages bitwise its counterpart's staged shards, by digest);
+               13b Llama-3-70B (16 of 80 layers) pp=2 over two processes
+               and 13c Mixtral (8 of 32 layers, the grouped FFN selected by
+               its model_config.json) pp=2 over two processes, both
+               schedules, against pp=1 (K2 on wgmma in each process)
 The lines before the last carry the card's name and power limit and a JSON
 object listing each kernel once for every serving path that launches it
 (the P/D decode engine's K1 launches as path "llama3-8b P/D decode", the
@@ -128,7 +154,8 @@ P/D decode (tp=1)" and "mixtral-8x7b-16l ep2 serve", phase 11's as
 "llama3-8b pp2 serve", "llama3-8b pp2 P/D decode", "llama3-70b-16l pp4
 serve" (timed at 64/8), "llama3-70b-16l pp2tp2 serve" (timed at 32/4),
 "mixtral-8x7b-16l pp2 serve" (K1 and K2) and "mixtral-8x7b-16l pp2ep2
-serve"), with that path's launch count (K2's entry also by kernel path, and its
+serve", phase 13's as "... dist ..." and "... device-wire P/D decode",
+launches summed over the group's processes), with that path's launch count (K2's entry also by kernel path, and its
 prefill-size times under prefill_*); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -324,8 +351,10 @@ def lane_groups(seq_lens: list[int], B: int) -> list[list[int]]:
 # at their interleave's groups: llama3-8b and Mixtral pp=2 at 32/8 B=2,
 # Llama-3-70B pp=4 at 64/8 B=1, its pp2tp2 at 32/4 B=2; "pd" is the P/D
 # decode lane at 32/8 B=1 (the broadcast ring of one request).
+# Phase 13: Llama-3-70B pp=2 at 64/8 B=2, a tp=2 group's P/D decode lane
+# at 16/4 B=1.
 K1_TIMED = [(32, 8, 4)] + [(H, Hkv, 4) for H, Hkv in LOCAL_HEADS + PP_HEADS] + [
-    (32, 8, 2), (64, 8, 1), (32, 4, 2)]
+    (32, 8, 2), (64, 8, 1), (32, 4, 2), (64, 8, 2), (16, 4, 1)]
 
 
 def phase_kernels(serve_seq_lens: list[int], pd_seq_len: int) -> dict:
@@ -940,7 +969,7 @@ async def check_surface(server, cfg_model, tag: str, card: str) -> dict:
     # Embeddings of the two ~1100-token prompts, one call each, counted.
     long_prompts = [b["prompt"] for b in bodies[:2]]
     embed_calls: list[tuple[float, float]] = []
-    timed(engine, "_run_embed", embed_calls, sync=engine.device.type == "cuda")
+    timed(engine, "_op_embed", embed_calls, sync=engine.device.type == "cuda")
     ops.reset_kernel_launches()
     vecs, http_ms = [], []
     for prompt in long_prompts:
@@ -1038,7 +1067,7 @@ def check_moe_embed_dense(surface: dict, params, model_dir: str, card: str, *,
     if dense.mcfg.moe_impl != "dense":
         fail(f"moe-serve: the comparison engine runs {dense.mcfg.moe_impl}")
     calls: list[tuple[float, float]] = []
-    timed(dense, "_run_embed", calls, sync=dense.device.type == "cuda")
+    timed(dense, "_op_embed", calls, sync=dense.device.type == "cuda")
     asyncio.run(dense.start())
     try:
         ref = [dense.embed(ids) for ids in surface["ids"]]
@@ -1141,8 +1170,9 @@ async def phase_pd(cfg_model, params, card: str, *, model: str = MODEL,
     from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
     from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
 
+    # The host /kv path (phase 13e drives the device wire).
     kw = dict(model=model, device=device, port=0, max_batch=8,
-              max_model_len=2048, decode_chunk=8)
+              max_model_len=2048, decode_chunk=8, kv_transfer="host")
     prompts = pd_prompts()
     sync = device == "cuda"
 
@@ -1183,19 +1213,19 @@ async def phase_pd(cfg_model, params, card: str, *, model: str = MODEL,
     # enqueue, which the other threads of this one process contend with.
     timed(pre, "_run_prefill", windows, sync=False)
     timed(pre, "_maybe_stage_chunk", chunk_stalls, sync=sync)
-    timed(pre, "_stage_kv", export_stalls, sync=sync)
+    timed(pre, "_op_stage_kv", export_stalls, sync=sync)
     timed(dec, "_import_into_slot", imports, sync=sync)
     # Each import is held bitwise against the exporter's pages right away
     # (the exporter's blocks park in its prefix cache, untouched meanwhile).
     exported: dict[str, list[int]] = {}
     page_checks: list[tuple[str, bool]] = []
-    stage_kv = pre._stage_kv
+    stage_kv = pre._op_stage_kv
 
-    def record_ids(rid, ids, **kwargs):
-        exported[rid] = ids[: kwargs["meta"]["num_blocks"]]
-        return stage_kv(rid, ids, **kwargs)
+    def record_ids(**kwargs):
+        exported[kwargs["request_id"]] = kwargs["idx"][: kwargs["meta"]["num_blocks"]].tolist()
+        return stage_kv(**kwargs)
 
-    pre._stage_kv = record_ids
+    pre._op_stage_kv = record_ids
     import_into = dec._import_into_slot
 
     def check_pages(idx, pi, blocks):
@@ -1211,11 +1241,11 @@ async def phase_pd(cfg_model, params, card: str, *, model: str = MODEL,
     chunks_at_release: dict[str, int] = {}
     release = pre.release_kv_export
 
-    def count_release(rid):
+    def count_release(rid, **kwargs):
         rec = pre.get_kv_export(rid)
         if rec is not None:
             chunks_at_release[rid] = rec.get("chunks_staged", 0)
-        release(rid)
+        release(rid, **kwargs)
 
     pre.release_kv_export = count_release
 
@@ -1402,7 +1432,7 @@ async def phase_epd(cfg_model, params, card: str, *, model: str = MODEL,
     from llm_d_inference_scheduler_tpu_torch.models import llama, vision
 
     kw = dict(model=model, device=device, port=0, max_batch=8, max_model_len=2048,
-              decode_chunk=8)
+              decode_chunk=8, kv_transfer="host")
     sync = device == "cuda"
     # Encode workers share the served model's weights (their tower projects
     # into its d_model) and hold a few KV blocks only.
@@ -2114,12 +2144,18 @@ def run_measured(cmd: list[str], cwd: str) -> tuple[int, str, float]:
 
 
 def excuse_flip(params, mcfg, prompt: list[int], want: list[int], got: list[int],
-                at: int, tag: str = "ckpt") -> str:
+                at: int, tag: str = "ckpt", moe_route: bool = False) -> str:
     """Where the served tokens leave the reference's (position ``at``), both
     tokens' logits must lie within TOKEN_TIE_STEPS bf16 steps of the top
     logit of the reference's model there (a whole-sequence forward over the
     prompt and the reference's tokens so far); returns the report, or
-    fails."""
+    fails. With ``moe_route`` (an MoE model whose two runs batched their
+    decode steps differently) a wider gap passes too where, at a decoded
+    position before ``at``, some layer's router logits of the k-th and
+    (k+1)-th experts lie within MOE_ROUTE_TIE_STEPS bf16 steps in that
+    forward: phase 7's rule for a routing flip (another batch rounds the
+    residual stream otherwise, which can tip such a tie; from there the runs
+    follow other experts)."""
     from llm_d_inference_scheduler_tpu_torch.models import llama
 
     ids = torch.tensor([prompt + want[:at]], device=params["embed"].device)
@@ -2132,6 +2168,23 @@ def excuse_flip(params, mcfg, prompt: list[int], want: list[int], got: list[int]
     line = (f"position {at}: served {got[at]} (rank {rank}), reference {want[at]}; "
             f"below the top logit {top:.4f} by {gaps[0]:.1f} and {gaps[1]:.1f} "
             f"bf16 steps of {step:.4e}")
+    if max(gaps) > TOKEN_TIE_STEPS and moe_route and mcfg.n_experts:
+        _, routes, _ = recorded(lambda: llama.forward(params, mcfg, ids))
+        k, lo = mcfg.experts_per_token, len(prompt)
+        best = None
+        for layer, (rl, _) in enumerate(routes):
+            top = rl[lo:lo + at].sort(-1, descending=True).values
+            if not top.numel():
+                continue
+            step = torch.exp2(torch.frexp(top[:, k - 1:k + 1].abs().amax(-1)).exponent - 8.0)
+            steps = (top[:, k - 1] - top[:, k]) / step
+            p = int(steps.argmin())
+            if best is None or float(steps[p]) < best[0]:
+                best = (float(steps[p]), layer, lo + p)
+        if best is not None and best[0] <= MOE_ROUTE_TIE_STEPS:
+            return (f"{line}; a routing near-tie before it: layer {best[1]}, position "
+                    f"{best[2]}, top-{k} margin {best[0]:.1f} bf16 steps")
+        line += f"; the closest routing tie before it: {best}"
     if max(gaps) > TOKEN_TIE_STEPS:
         fail(f"{tag}: the served tokens leave the reference's at no near-tie: {line}")
     return line
@@ -2362,13 +2415,26 @@ def parallel_argv(model: str, device: str, *, tp: int = 1, ep: int = 1, pp: int 
             "--decode-chunk", "8", "--kv-events-port", "0", *extra]
 
 
-async def serve_counted(server, bodies: list[dict], ids: str = "r") -> dict:
+def parallel_config(model: str, device: str, **kw):
+    """The engine config of :func:`parallel_argv`, with the host /kv
+    handoff pinned (``kv_transfer``, a config field the server takes no
+    flag for), so these engines hand KV over as phase 5's do."""
+    from llm_d_inference_scheduler_tpu_torch.engine.server import parse_config
+
+    cfg, _ = parse_config(parallel_argv(model, device, **kw))
+    return dataclasses.replace(cfg, kv_transfer="host")
+
+
+async def serve_counted(server, bodies: list[dict], ids: str = "r",
+                        group: bool = False) -> dict:
     """A warm-up request, then ``bodies`` at once (request ids r0, r1, ...,
     or ``ids`` in place of r)
     with every kernel's launch count set to 0 just before and read just
-    after; returns the tokens, launches (K2's by kernel path too), decode
-    steps (and by pp schedule), decode tok/s and the mean wall time of one
-    decode step (of the engine's fused chunks)."""
+    after (with ``group``, in every process of the engine's group, summed;
+    ``by_process`` keeps each); returns the tokens, launches (K2's by kernel
+    path too, the leader's), decode steps (and by pp schedule), decode tok/s
+    and the mean wall time of one decode step (of the engine's fused
+    chunks)."""
     from llm_d_inference_scheduler_tpu_torch import ops
     from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe
 
@@ -2379,12 +2445,18 @@ async def serve_counted(server, bodies: list[dict], ids: str = "r") -> dict:
     tel = engine.telemetry
     before = (engine.decode_steps, tel.decode_step.sum, tel.generation_tokens.value)
     by_schedule = dict(engine.decode_steps_by_schedule)
+    if group:
+        await asyncio.to_thread(engine.group_launches, True)
     ops.reset_kernel_launches()
     t0 = time.monotonic()
     results = await asyncio.gather(*[asyncio.to_thread(
         http_post, server.port, {**b, "request_id": f"{ids}{i}"}) for i, b in enumerate(bodies)])
     wall = time.monotonic() - t0
     launches = ops.kernel_launches()
+    by_process = [launches]
+    if group:
+        by_process = await asyncio.to_thread(engine.group_launches)
+        launches = {k: sum(p[k] for p in by_process) for k in by_process[0]}
     paths = dict(grouped_moe.path_launches)
     steps = engine.decode_steps - before[0]
     dec_s = tel.decode_step.sum - before[1]
@@ -2394,14 +2466,14 @@ async def serve_counted(server, bodies: list[dict], ids: str = "r") -> dict:
         if not choice["text"] or choice["finish_reason"] not in ("length", "stop"):
             fail(f"request {i} returned no text or no finish reason: {choice}")
     return {"tokens": tokens, "launches": launches, "steps": steps, "wall": wall,
-            "tok_s": dec_tokens / dec_s if dec_s else 0.0,
+            "tok_s": dec_tokens / dec_s if dec_s else 0.0, "by_process": by_process,
             "step_ms": dec_s / max(steps, 1) * 1e3, "paths": paths,
             "schedules": {k: engine.decode_steps_by_schedule[k] - n
                           for k, n in by_schedule.items()}}
 
 
 def near_tie_flips(tag: str, ref_params, mcfg, prompts: list[list[int]],
-                   want: dict, got: dict, ids: list[str]) -> list[str]:
+                   want: dict, got: dict, ids: list[str], moe_route: bool = False) -> list[str]:
     """Each of ``ids``' tokens against the reference's, a divergence
     passing only at a near-tie (``excuse_flip``); returns the reports."""
     flips = []
@@ -2411,7 +2483,8 @@ def near_tie_flips(tag: str, ref_params, mcfg, prompts: list[list[int]],
             fail(f"{tag}: {rid} gave {len(g)} tokens, the reference {len(w)}")
         at = first_divergence(g, w)
         if at is not None:
-            flips.append(f"{rid}: " + excuse_flip(ref_params, mcfg, prompt, w, g, at, tag))
+            flips.append(f"{rid}: " + excuse_flip(ref_params, mcfg, prompt, w, g, at, tag,
+                                                  moe_route))
     return flips
 
 
@@ -2427,14 +2500,14 @@ async def phase_tp(cfg_model, params, card: str, *, model: str = MODEL,
     P/D decode path."""
     from llm_d_inference_scheduler_tpu_torch import ops
     from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
-    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
     from llm_d_inference_scheduler_tpu_torch.models import llama
     from llm_d_inference_scheduler_tpu_torch.ops import paged_attention
 
     tag = f"tp{TP}"
     bodies = serve_prompts(model)
-    cfg_tp, _ = parse_config(parallel_argv(model, device, tp=TP))
-    cfg_1, _ = parse_config(parallel_argv(model, device))
+    cfg_tp = parallel_config(model, device, tp=TP)
+    cfg_1 = parallel_config(model, device)
     ref = EngineServer(cfg_1, engine=TorchEngine(cfg_1, params=params))
     await ref.start()
     try:
@@ -2483,11 +2556,12 @@ async def phase_tp(cfg_model, params, card: str, *, model: str = MODEL,
         dec = TorchEngine(cfg_1, params=params)
         exported: dict[str, list[int]] = {}
         checks: list[bool] = []
-        stage_kv, import_into = tp_engine._stage_kv, dec._import_into_slot
+        stage_kv, import_into = tp_engine._op_stage_kv, dec._import_into_slot
 
-        def record_ids(rid, ids, **kwargs):
-            exported[rid] = ids[: kwargs["meta"]["num_blocks"]]
-            return stage_kv(rid, ids, **kwargs)
+        def record_ids(**kwargs):
+            exported[kwargs["request_id"]] = (
+                kwargs["idx"][: kwargs["meta"]["num_blocks"]].tolist())
+            return stage_kv(**kwargs)
 
         def check_pages(idx, pi, blocks):
             import_into(idx, pi, blocks)
@@ -2500,7 +2574,7 @@ async def phase_tp(cfg_model, params, card: str, *, model: str = MODEL,
                 checks.append(torch.equal(dec.k_pages[:, d_ids, :, heads], kp[:, p_ids])
                               and torch.equal(dec.v_pages[:, d_ids, :, heads], vp[:, p_ids]))
 
-        tp_engine._stage_kv, dec._import_into_slot = record_ids, check_pages
+        tp_engine._op_stage_kv, dec._import_into_slot = record_ids, check_pages
         d_srv = EngineServer(cfg_1, engine=dec)
         pd_tokens, _ = tap_engine(dec)
         await d_srv.start()
@@ -2587,16 +2661,16 @@ async def phase_tls_chaos(params, card: str, *, model: str = MODEL,
 
     from llm_d_inference_scheduler_tpu_torch import ops
     from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
-    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
     from llm_d_inference_scheduler_tpu_torch.ops import paged_attention
     from llm_d_inference_scheduler_tpu_torch.utils.faults import FaultInjector
 
     with tempfile.TemporaryDirectory() as certs:
         made_by = make_cert(certs)
         log(f"[tls] certificate written by {made_by}")
-        cfg, _ = parse_config(parallel_argv(model, device, tp=TP, extra=(
+        cfg = parallel_config(model, device, tp=TP, extra=(
             "--secure-serving", "--cert-path", certs, "--chaos", CHAOS_SPEC,
-            "--chaos-seed", str(CHAOS_SEED))))
+            "--chaos-seed", str(CHAOS_SEED)))
         cfg.max_batch, cfg.max_model_len = 2, 512
         server = EngineServer(cfg, engine=TorchEngine(cfg, params=params))
         await server.start()
@@ -2646,15 +2720,15 @@ async def phase_ep(cfg_model, params, card: str, *, model: str, served: str,
     requests, greedy tokens equal up to reported near-ties. Returns K1's
     launches on the ep=2 serve path."""
     from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
-    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
     from llm_d_inference_scheduler_tpu_torch.ops import paged_attention
 
     tag = f"ep{EP}"
     bodies = serve_prompts(served)
     runs = {}
     for key, ep in (("ref", 1), ("ep", EP)):
-        cfg, _ = parse_config(parallel_argv(model, device, ep=ep, extra=(
-            "--served-model-name", served)))
+        cfg = parallel_config(model, device, ep=ep, extra=(
+            "--served-model-name", served))
         srv = EngineServer(cfg, engine=TorchEngine(cfg, params=params))
         if ep > 1 and (srv.engine.layout is None or srv.engine.mcfg.moe_impl != "dense"):
             fail(f"{tag}: --ep-size {ep} built no dense sharded engine")
@@ -2788,7 +2862,7 @@ async def phase_pp(cfg_model, params, card: str, *, model: str, served: str, pp:
     path, each summed over both counted runs, and the pp=1 runs (``ref`` takes them back, so a second layout
     of the same weights serves pp=1 once)."""
     from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
-    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
     from llm_d_inference_scheduler_tpu_torch.models import llama
     from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe, paged_attention
 
@@ -2800,7 +2874,7 @@ async def phase_pp(cfg_model, params, card: str, *, model: str, served: str, pp:
     for key, degrees in (("ref", {}), ("pp", dict(pp=pp, tp=tp, ep=ep))):
         if key in runs:
             continue
-        cfg, _ = parse_config(parallel_argv(model, device, **degrees, extra=extra))
+        cfg = parallel_config(model, device, **degrees, extra=extra)
         cfg.grouped_moe = grouped
         engine = TorchEngine(cfg, params=params)
         if key == "pp" and (engine.layout is None or engine.layout.pp != pp
@@ -2930,12 +3004,12 @@ async def phase_pp_pd(cfg_model, params, card: str, *, model: str = MODEL,
     Returns K1's launches on the pp=2 decode engine."""
     from llm_d_inference_scheduler_tpu_torch import ops
     from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
-    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
     from llm_d_inference_scheduler_tpu_torch.ops import paged_attention
 
     tag = f"{model} pp{PP} P/D"
-    cfg_pp, _ = parse_config(parallel_argv(model, device, pp=PP))
-    cfg_1, _ = parse_config(parallel_argv(model, device))
+    cfg_pp = parallel_config(model, device, pp=PP)
+    cfg_1 = parallel_config(model, device)
     prompt = pd_prompts()["serial"]
     body = {"prompt": prompt, "max_tokens": PD_TOKENS, "temperature": 0, "ignore_eos": True}
     mono = EngineServer(cfg_1, engine=TorchEngine(cfg_1, params=params))
@@ -2954,11 +3028,12 @@ async def phase_pp_pd(cfg_model, params, card: str, *, model: str = MODEL,
         dec = TorchEngine(cfg_dec, params=params)
         exported: dict[str, list[int]] = {}
         checks: list[bool] = []
-        stage_kv, import_into = pre._stage_kv, dec._import_into_slot
+        stage_kv, import_into = pre._op_stage_kv, dec._import_into_slot
 
-        def record_ids(rid, ids_, stage_kv=stage_kv, exported=exported, **kwargs):
-            exported[rid] = ids_[: kwargs["meta"]["num_blocks"]]
-            return stage_kv(rid, ids_, **kwargs)
+        def record_ids(stage_kv=stage_kv, exported=exported, **kwargs):
+            exported[kwargs["request_id"]] = (
+                kwargs["idx"][: kwargs["meta"]["num_blocks"]].tolist())
+            return stage_kv(**kwargs)
 
         def check_pages(idx, pi, blocks, pre=pre, dec=dec, import_into=import_into,
                         exported=exported, checks=checks):
@@ -2966,7 +3041,7 @@ async def phase_pp_pd(cfg_model, params, card: str, *, model: str = MODEL,
             src = exported[pi.req.kv_transfer_params["remote_request_id"]]
             checks.extend(shard_page_checks(pre, src, dec, blocks[: len(src)]))
 
-        pre._stage_kv, dec._import_into_slot = record_ids, check_pages
+        pre._op_stage_kv, dec._import_into_slot = record_ids, check_pages
         p_srv, d_srv = EngineServer(cfg_pre, engine=pre), EngineServer(cfg_dec, engine=dec)
         pd_tokens, _ = tap_engine(dec)
         await p_srv.start()
@@ -3050,7 +3125,648 @@ async def phase_sim(card: str) -> None:
         fail(f"sim: the simulator launched kernels: {launches}")
 
 
+# ---- phase 13: multi-process serving and the KV wires ------------------------
+
+DIST_PROCS = 2
+DIST_DEVICE = "cuda"   # "cpu" in a rehearsal at tiny sizes
+MOE_DIST_LAYERS = 8    # of 32: the follower draws a stacked tensor whole
+MOE_DIST_SERVED = "mixtral-8x7b-8l"
+# How long an in-flight request may take to end once a follower died.
+DRILL_END_S = 15.0
+_SPAWNED: list = []
+
+
+def _reap_spawned() -> None:
+    """Stop every process this script started (its whole process group)."""
+    import signal
+
+    for p in _SPAWNED:
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            p.wait(10)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_cli(argv: list[str], log_path: str, *, own_follower: bool = False):
+    """The port's server CLI in a process of its own (its own session, so
+    it and its children are killed together), output to ``log_path``. With
+    ``own_follower``, a group's follower runs this script's
+    ``--dist-follower`` instead (for a model directory, a config without
+    weights, which the server refuses; or to set a config field the server
+    takes no flag for), which draws its ranks' weights from the seed as the
+    server would for a registry model."""
+    import atexit
+
+    if not _SPAWNED:
+        atexit.register(_reap_spawned)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = ([sys.executable, os.path.abspath(__file__), "--dist-follower"] if own_follower
+           else [sys.executable, "-m", "llm_d_inference_scheduler_tpu_torch.engine.server"])
+    with open(log_path, "wb") as out:  # the child keeps its own descriptor
+        p = subprocess.Popen([*cmd, *argv], cwd=root, env=env, stdout=out,
+                             stderr=subprocess.STDOUT, start_new_session=True)
+    p.log_path = log_path
+    _SPAWNED.append(p)
+    return p
+
+
+def tail(p, n: int = 30) -> str:
+    with open(p.log_path, errors="replace") as f:
+        return "".join(f.readlines()[-n:])
+
+
+def kill(p) -> int:
+    import signal
+
+    if p.poll() is None:
+        os.killpg(p.pid, signal.SIGKILL)
+    return p.wait(30)
+
+
+def dist_argv(model: str, *, pid: int, coord: int, instr: int, tp: int = 1, pp: int = 1,
+              extra: tuple[str, ...] = ()) -> list[str]:
+    """The server's command line of process ``pid`` of a two-process group on
+    the card (each process names its own ranks), phase 5's engine
+    settings."""
+    n_local = pp * tp // DIST_PROCS
+    dev = "cuda:0" if DIST_DEVICE == "cuda" else DIST_DEVICE
+    return ["--model", model, "--device", DIST_DEVICE, "--tp-size", str(tp),
+            "--pp-size", str(pp), "--devices", ",".join([dev] * n_local), "--port", "0",
+            "--max-batch", "8", "--max-model-len", "2048", "--decode-chunk", "8",
+            "--kv-events-port", "0",
+            "--dist-coordinator", f"127.0.0.1:{coord}",
+            "--dist-num-processes", str(DIST_PROCS), "--dist-process-id", str(pid),
+            "--dist-instr-port", str(instr), *extra]
+
+
+class DistGroup:
+    """A two-process engine group on the card: the follower from the server
+    CLI, the leader in this process on ``params`` (its ranks' shards are
+    views of them; the follower draws the same weights from the seed).
+    ``wire`` sets the group's ``kv_wire`` (a config field the server takes
+    no flag for): other than "auto", the follower runs this script's
+    ``--dist-follower``, which sets it in its own config."""
+
+    def __init__(self, model: str, params, tag: str, logs: str, wire: str = "auto", **kw):
+        from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+        from llm_d_inference_scheduler_tpu_torch.engine.server import parse_config
+
+        coord, instr = free_port(), free_port()
+        self.tag = tag
+        own = wire != "auto" or os.path.isdir(model)
+        self.follower = spawn_cli(
+            (["--kv-wire", wire] if own else [])
+            + dist_argv(model, pid=1, coord=coord, instr=instr, **kw),
+            os.path.join(logs, "".join(c if c.isalnum() else "_" for c in tag) + ".log"),
+            own_follower=own)
+        self.cfg = dataclasses.replace(
+            parse_config(dist_argv(model, pid=0, coord=coord, instr=instr, **kw))[0],
+            kv_wire=wire)
+        t0 = time.monotonic()
+        try:
+            self.engine = TorchEngine(self.cfg, params=params)
+        except Exception:
+            log(f"[{tag}] follower output:\n{tail(self.follower)}")
+            raise
+        self.join_s = time.monotonic() - t0
+        lay = self.engine.layout
+        if lay is None or lay.procs != DIST_PROCS:
+            fail(f"{tag}: the leader built no {DIST_PROCS}-process layout")
+        self.backend = self.engine.comm.backend
+
+    async def start(self):
+        from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
+
+        self.server = EngineServer(self.cfg, engine=self.engine)
+        await self.server.start()
+        return self
+
+    async def stop(self, expect_exit: bool = True) -> None:
+        """Stop the leader (its stop releases the follower), then the
+        follower must exit 0 on its own."""
+        await self.server.stop()
+        if expect_exit:
+            try:
+                rc = self.follower.wait(60)
+            except subprocess.TimeoutExpired:
+                rc = kill(self.follower)
+                fail(f"{self.tag}: the follower did not exit after the leader stopped")
+            if rc != 0:
+                fail(f"{self.tag}: the follower exited {rc}:\n{tail(self.follower)}")
+        else:
+            kill(self.follower)
+
+    def check_kernels(self) -> list[dict]:
+        """K1 (and K2) in every process of the group against their plain
+        versions at the process's own shapes (``TorchEngine.check_kernels``)."""
+        atol, rtol = TOL[torch.bfloat16]
+        res = self.engine.check_kernels(atol, rtol, MOE_BF16_TOL)
+        log(f"[{self.tag}] kernels against their plain versions in each process "
+            f"(max abs err, within tolerance): {res}")
+        if not all(ok for per in res for _, ok in per.values()):
+            fail(f"{self.tag}: a kernel disagrees with its plain version in the group: {res}")
+        return res
+
+
+def logits_gate(tag: str, engine, params, mcfg, prompt: list[int]) -> float:
+    """The group's last-position logits of ``prompt`` against one rank's
+    forward on ``params``, max |diff| / max |logit| within LOGITS_REL_TOL."""
+    from llm_d_inference_scheduler_tpu_torch.models import llama
+
+    got = torch.from_numpy(engine.last_logits(prompt))
+    with torch.no_grad():
+        want = llama.forward(params, mcfg, torch.tensor([prompt], device=engine.device))[0][0, -1]
+    want = want.float().cpu()
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    log(f"[{tag}] last-position logits against one rank: max |diff| / max |logit| = "
+        f"{rel:.4e} (limit {LOGITS_REL_TOL})")
+    if not rel <= LOGITS_REL_TOL:
+        fail(f"{tag}: the group's logits leave one rank's by {rel:.4e}")
+    return rel
+
+
+async def phase_dist_tp(cfg_model, params, card: str, logs: str, model: str = MODEL) -> dict:
+    """13a: llama3-8b at full width and depth with tp=2 over two processes
+    against the single-process tp=1 engine on the same weights: phase 5's
+    four requests, tokens equal up to reported near-ties, K1 once per layer
+    and step in each process. 13d, first drill: the follower killed under a
+    request. Returns K1's launches summed over the group."""
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
+    from llm_d_inference_scheduler_tpu_torch.ops import paged_attention
+
+    tag = "dist tp2"
+    bodies = serve_prompts(model)
+    cfg_1 = parallel_config(model, DIST_DEVICE)
+    ref = EngineServer(cfg_1, engine=TorchEngine(cfg_1, params=params))
+    await ref.start()
+    try:
+        want = await serve_counted(ref, bodies)
+    finally:
+        await ref.stop()
+    del ref
+    g = DistGroup(model, params, tag, logs, tp=2)
+    log(f"[{tag}] {card}: backend {g.backend}; the group joined in {g.join_s:.1f}s "
+        f"(the follower's start and weight draw)")
+    await g.start()
+    try:
+        checks = await asyncio.to_thread(g.check_kernels)
+        got = await serve_counted(g.server, bodies, group=True)
+        L = cfg_model.n_layers
+        k1 = [p[paged_attention.KERNEL] for p in got["by_process"]]
+        log(f"[{tag}] decode steps {got['steps']}, K1 launches by process {k1} (n_layers x "
+            f"steps = {L * got['steps']} each), launches by process {got['by_process']}")
+        if got["steps"] <= 0 or k1 != [L * got["steps"]] * DIST_PROCS:
+            fail(f"{tag}: K1 did not launch once per layer and step in each process")
+        tok = g.engine.tokenizer
+        greedy = [i for i, b in enumerate(bodies) if b["temperature"] == 0]
+        prompts = [tok.encode(bodies[i]["prompt"]) for i in greedy]
+        rel = await asyncio.to_thread(logits_gate, tag, g.engine, params, cfg_model,
+                                      prompts[0])
+        flips = near_tie_flips(tag, params, cfg_model, prompts, want["tokens"],
+                               got["tokens"], [f"r{i}" for i in greedy])
+        log(f"[{tag}] greedy tokens equal to the single-process tp=1 engine's for "
+            f"{len(greedy) - len(flips)} of {len(greedy)} requests; near-tie flips: "
+            f"{flips or 'none'}")
+        log(f"[{tag}] {card}: decode {got['tok_s']:.1f} tok/s, {got['step_ms']:.2f} ms a "
+            f"decode step (two processes on one card, collectives through gloo: not a TP "
+            f"speed); tp=1 {want['tok_s']:.1f} tok/s, {want['step_ms']:.2f} ms")
+        # 13d: the follower dies under a request.
+        drill = await drill_follower_lost(g, tag)
+    finally:
+        await g.stop(expect_exit=False)
+    return {"launches": got["launches"][paged_attention.KERNEL], "checks": checks,
+            "rel": rel, "step_ms": got["step_ms"], "ref_step_ms": want["step_ms"],
+            "backend": g.backend, "drill": drill}
+
+
+async def drill_follower_lost(g: DistGroup, tag: str) -> dict:
+    """Kill the follower while a long request decodes: the request ends
+    within DRILL_END_S, /health answers 503 "degraded", and a new request
+    ends at once."""
+    port, engine = g.server.port, g.engine
+    before = engine.decode_steps
+    req = asyncio.ensure_future(asyncio.to_thread(http_post, port, {
+        "prompt": "the drill", "max_tokens": 1500, "temperature": 0, "ignore_eos": True}))
+    t0 = time.monotonic()
+    while engine.decode_steps == before:
+        if time.monotonic() - t0 > 60:
+            fail(f"{tag}: the drill request never decoded")
+        await asyncio.sleep(0.01)
+    kill(g.follower)
+    t_kill = time.monotonic()
+    try:
+        res = await asyncio.wait_for(req, DRILL_END_S)
+        ended = time.monotonic() - t_kill
+        n = len(res["json"]["choices"][0]["text"])
+    except asyncio.TimeoutError:
+        fail(f"{tag}: the in-flight request did not end within {DRILL_END_S}s of the "
+             "follower's death")
+    except urllib.error.HTTPError as e:
+        ended, n = time.monotonic() - t_kill, f"HTTP {e.code}"
+    status, doc = await asyncio.to_thread(health, port)
+    t1 = time.monotonic()
+    try:
+        after = await asyncio.wait_for(asyncio.to_thread(http_post, port, {
+            "prompt": "after", "max_tokens": 8, "temperature": 0}), DRILL_END_S)
+        after = after["json"]["choices"][0]["finish_reason"]
+    except urllib.error.HTTPError as e:
+        after = f"HTTP {e.code}"
+    except asyncio.TimeoutError:
+        fail(f"{tag}: a request to the degraded leader hung")
+    log(f"[13d] follower killed: the in-flight request ended {ended:.2f}s later "
+        f"({n} chars), /health {status} {doc.get('status')}, a new request ended in "
+        f"{time.monotonic() - t1:.2f}s ({after})")
+    if status != 503 or doc.get("status") != "degraded" or not engine.dist_degraded:
+        fail(f"{tag}: /health answered {status} {doc} after the follower's death")
+    return {"ended_s": ended}
+
+
+async def drill_leader_lost(logs: str) -> float:
+    """13d, second drill: a two-process group from the server CLI (tiny,
+    tp=2 on the card); SIGKILL on the leader makes the follower exit
+    nonzero. Returns the seconds it took."""
+    coord, instr, port = free_port(), free_port(), free_port()
+    argv = ["--max-batch", "2", "--max-model-len", "256"]
+    leader = spawn_cli(dist_argv("tiny", pid=0, coord=coord, instr=instr, tp=2,
+                                 extra=tuple(argv)) + ["--port", str(port)],
+                       os.path.join(logs, "drill_leader.log"))
+    follower = spawn_cli(dist_argv("tiny", pid=1, coord=coord, instr=instr, tp=2,
+                                   extra=tuple(argv)), os.path.join(logs, "drill_follower.log"))
+    try:
+        t0 = time.monotonic()
+        while True:
+            try:
+                if health(port)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() - t0 > 120 or leader.poll() is not None:
+                fail(f"13d: the CLI group never served:\n{tail(leader)}\n{tail(follower)}")
+            await asyncio.sleep(0.2)
+        kill(leader)
+        t_kill = time.monotonic()
+        try:
+            rc = follower.wait(45)
+        except subprocess.TimeoutExpired:
+            fail("13d: the follower outlived its leader by 45 s")
+        took = time.monotonic() - t_kill
+        lost = "LeaderLost" in tail(follower, 200)
+        log(f"[13d] leader killed: the follower exited {rc} {took:.2f}s later "
+            f"(LeaderLost logged: {lost})")
+        if rc == 0 or not lost:
+            fail(f"13d: the follower exited {rc} after its leader's death:\n{tail(follower)}")
+        return took
+    finally:
+        kill(leader)
+        kill(follower)
+
+
+async def phase_dist_pp(cfg_model, params, card: str, logs: str, *, model: str,
+                        served: str, ref: dict | None = None) -> dict:
+    """13b/13c: a pp=2 group over two processes (one stage each) against
+    the single-process pp=1 engine on the same weights: phase 5's four
+    requests (the lane-group interleave) and one single-lane request (the
+    broadcast ring), tokens equal up to reported near-ties; K1 tp x L/pp a
+    ring step and pp x tp x L/pp an interleave step in each process, and
+    with the grouped FFN K2 the same per layer stack and per prefill, all on
+    wgmma. ``ref`` takes pp=1's runs from phase 11."""
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
+    from llm_d_inference_scheduler_tpu_torch.ops import grouped_moe, paged_attention
+
+    tag = f"dist {served} pp2"
+    bodies = serve_prompts(served)
+    single = [{**bodies[0], "prompt": bodies[0]["prompt"][-300:]}]
+    extra = ("--served-model-name", served)
+    if ref is None:
+        cfg = parallel_config(model, DIST_DEVICE, extra=extra)
+        srv = EngineServer(cfg, engine=TorchEngine(cfg, params=params))
+        await srv.start()
+        try:
+            ref = {"ref": await serve_counted(srv, bodies),
+                   "ref-single": await serve_counted(srv, single, ids="s")}
+        finally:
+            await srv.stop()
+        del srv
+        gc.collect()
+        if DIST_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    g = DistGroup(model, params, tag, logs, pp=2, extra=extra)
+    grouped = g.engine.mcfg.moe_impl == "grouped"
+    log(f"[{tag}] {card}: backend {g.backend}; the group joined in {g.join_s:.1f}s; "
+        f"moe {g.engine.mcfg.moe_impl if g.engine.mcfg.n_experts else 'none'}")
+    await g.start()
+    try:
+        checks = await asyncio.to_thread(g.check_kernels)
+        runs = {"pp": await serve_counted(g.server, bodies, group=True),
+                "pp-single": await serve_counted(g.server, single, ids="s", group=True)}
+        tok = g.engine.tokenizer
+        greedy = [i for i, b in enumerate(bodies) if b["temperature"] == 0]
+        prompts = [tok.encode(bodies[i]["prompt"]) for i in greedy]
+        rel = await asyncio.to_thread(logits_gate, tag, g.engine, params, g.engine.mcfg,
+                                      prompts[0])
+    finally:
+        await g.stop()
+    L = cfg_model.n_layers // 2
+    launches = {}
+    for key, run in runs.items():
+        sched = run["schedules"]
+        want_k1 = L * (sched["ring"] + 2 * sched["interleave"])
+        k1 = [p[paged_attention.KERNEL] for p in run["by_process"]]
+        log(f"[{tag}] {'4 requests' if key == 'pp' else 'one request'}: decode steps "
+            f"{run['steps']} ({sched}), K1 by process {k1} (L/pp x (ring + pp x "
+            f"interleave) = {want_k1} each), launches by process {run['by_process']}, "
+            f"K2 by path (leader) {run['paths']}")
+        if run["steps"] <= 0 or k1 != [want_k1] * DIST_PROCS:
+            fail(f"{tag}: K1 did not launch as the pp schedules predict in each process")
+        if grouped:
+            n_pre = len(bodies) if key == "pp" else 1
+            want_k2 = L * (n_pre + sched["ring"] + 2 * sched["interleave"])
+            k2 = [p[grouped_moe.KERNEL] for p in run["by_process"]]
+            if k2 != [want_k2] * DIST_PROCS or run["paths"].get("wgmma") != want_k2:
+                fail(f"{tag}: K2 launched {k2} ({run['paths']} on the leader), not L/pp "
+                     f"per prefill and per layer stack of each step ({want_k2}) in each "
+                     "process, all on wgmma")
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    if runs["pp"]["schedules"]["interleave"] <= 0 or runs["pp-single"]["schedules"]["interleave"]:
+        fail(f"{tag}: the schedules were not the interleave (4 lanes) and the ring (1 lane)")
+    log(f"[{tag}] pp=1's schedules: 4 requests {ref['ref']['steps']} steps, one request "
+        f"{ref['ref-single']['steps']} (the group's batches follow its own timing)")
+    ids = [f"r{i}" for i in greedy] + ["s0"]
+    # The single lane decodes alone in both (bucket 1 each step): it must
+    # agree up to token near-ties. The four requests' batches follow each
+    # engine's timing; for the MoE model a routing near-tie excuses a flip.
+    flips = near_tie_flips(tag, params, g.engine.mcfg, [tok.encode(single[0]["prompt"])],
+                           ref["ref-single"]["tokens"], runs["pp-single"]["tokens"], ["s0"])
+    flips += near_tie_flips(tag, params, g.engine.mcfg, prompts, ref["ref"]["tokens"],
+                            runs["pp"]["tokens"], ids[:-1],
+                            moe_route=bool(g.engine.mcfg.n_experts))
+    log(f"[{tag}] greedy tokens equal to the pp=1 engine's for {len(ids) - len(flips)} "
+        f"of {len(ids)} requests; near-tie flips: {flips or 'none'}")
+    log(f"[{tag}] {card}: {runs['pp']['step_ms']:.2f} ms a decode step over the 4 "
+        f"requests, single lane {runs['pp-single']['step_ms']:.2f} ms (two processes on "
+        f"one card: not a pipeline speed); pp=1 {ref['ref']['step_ms']:.2f} ms, single "
+        f"lane {ref['ref-single']['step_ms']:.2f} ms")
+    return {"launches": launches, "checks": checks, "rel": rel,
+            "step_ms": runs["pp"]["step_ms"], "single_ms": runs["pp-single"]["step_ms"]}
+
+
+def mono_tokens(params, prompt: str, model: str = MODEL) -> list[int]:
+    """Greedy PD_TOKENS of ``prompt`` from a single-process tp=1 engine."""
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
+
+    async def run():
+        cfg = parallel_config(model, DIST_DEVICE)
+        srv = EngineServer(cfg, engine=TorchEngine(cfg, params=params))
+        toks, _ = tap_engine(srv.engine)
+        await srv.start()
+        try:
+            await asyncio.to_thread(http_post, srv.port, {
+                "prompt": prompt, "max_tokens": PD_TOKENS, "temperature": 0,
+                "ignore_eos": True, "request_id": "mono"})
+        finally:
+            await srv.stop()
+        return toks["mono"]
+
+    return asyncio.run(run())
+
+
+async def phase_device_wire(params, card: str, logs: str, mono: list[int],
+                            model: str = MODEL) -> dict:
+    """13e: the device wire between a prefill engine and a decode engine,
+    first with the prefill engine in a process of its own (the server CLI:
+    the CUDA IPC pull), then both in this process (the direct copy). Each
+    time the pull route is ``device``, the imported pages equal the bytes
+    the exporter's /kv host route serves for the same export, bitwise, and
+    the greedy tokens equal a monolithic engine's. Returns the decode
+    engine's K1 launches over both handoffs."""
+    from llm_d_inference_scheduler_tpu_torch.engine import kv_wire
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
+    from llm_d_inference_scheduler_tpu_torch.ops import paged_attention
+
+    # The prefill server in a process of its own takes kv_transfer "auto",
+    # the device wire on the card; the engines here ask for it outright.
+    argv = parallel_argv(model, DIST_DEVICE)
+    prompt = pd_prompts()["serial"]
+    body = {"prompt": prompt, "max_tokens": PD_TOKENS, "temperature": 0, "ignore_eos": True}
+    cfg = dataclasses.replace(parse_config(argv)[0], kv_transfer="device")
+    dec = TorchEngine(cfg, params=params)
+    imported: dict[str, torch.Tensor] = {}
+    import_into = dec._import_into_slot
+
+    def snapshot(idx, pi, blocks):
+        import_into(idx, pi, blocks)
+        ids = torch.tensor(blocks, device=dec.device)
+        imported[pi.req.request_id] = torch.stack([dec.k_pages[:, ids], dec.v_pages[:, ids]])
+
+    dec._import_into_slot = snapshot
+    d_srv = EngineServer(cfg, engine=dec)
+    d_tokens, _ = tap_engine(dec)
+    await d_srv.start()
+    k1 = 0
+    res = {}
+    try:
+        for where in ("two processes", "one process"):
+            if where == "two processes":
+                port = free_port()
+                pre_p = spawn_cli(argv[:argv.index("--port")] + ["--port", str(port)]
+                                  + argv[argv.index("--port") + 2:],
+                                  os.path.join(logs, "device_wire_prefill.log"))
+                t0 = time.monotonic()
+                while True:
+                    try:
+                        if health(port)[0] == 200:
+                            break
+                    except OSError:
+                        pass
+                    if time.monotonic() - t0 > 120 or pre_p.poll() is not None:
+                        fail(f"13e: the prefill server never served:\n{tail(pre_p)}")
+                    await asyncio.sleep(0.2)
+                pre_srv = None
+            else:
+                pre_srv = EngineServer(cfg, engine=TorchEngine(cfg, params=params))
+                await pre_srv.start()
+                port = pre_srv.port
+            try:
+                rid = f"pd-{where[:3]}"
+                r1 = await asyncio.to_thread(http_post, port, {
+                    **body, "max_tokens": 1, "request_id": rid + "-pre",
+                    "kv_transfer_params": {"do_remote_decode": True}})
+                ktp = r1["json"]["kv_transfer_params"]
+                if not ktp.get("kv_wire_device") or "transfer_address" in ktp:
+                    fail(f"13e ({where}): the exporter advertised {sorted(ktp)}")
+                # The /kv host route's bytes of the same export (GET only;
+                # the device pull releases it), off the loop that serves it.
+                def get_kv(path=f"/kv/{ktp['remote_request_id']}"):
+                    with kv_wire.KvClient("127.0.0.1", port) as c:
+                        return c.get(path)
+
+                _, hdrs, payload = await asyncio.to_thread(get_kv)
+                shape = json.loads(hdrs["x-kv-shape"])
+                hk, hv = kv_wire.decode_kv(payload, kv_wire.dtype_from_name(hdrs["x-kv-dtype"]),
+                                           tuple(shape))
+                await asyncio.to_thread(dec.group_launches, True)
+                r2 = await asyncio.to_thread(http_post, d_srv.port, {
+                    **body, "request_id": rid, "kv_transfer_params": ktp})
+                k1 += (await asyncio.to_thread(dec.group_launches))[0][paged_attention.KERNEL]
+            finally:
+                if pre_srv is not None:
+                    await pre_srv.stop()
+                else:
+                    kill(pre_p)
+            route = r2["headers"].get("x-kv-pull-route")
+            n = int(ktp["remote_num_blocks"])
+            got = imported.get(rid)
+            same = (got is not None
+                    and torch.equal(got[0][:, :n].cpu(), hk[:, :n])
+                    and torch.equal(got[1][:, :n].cpu(), hv[:, :n]))
+            pos = ktp["remote_seq_len"]
+            flips = first_divergence(d_tokens[rid], mono)
+            log(f"[13e] device wire, {where}: route {route}, {r2['headers'].get('x-kv-pull-bytes')} "
+                f"bytes in {r2['headers'].get('x-kv-pull-ms')} ms, imported pages (n={n} "
+                f"blocks, {pos} positions) bitwise the /kv host route's: {same}; greedy tokens "
+                f"{'equal to' if flips is None else f'leave at {flips}'} the monolithic engine's")
+            if route != "device" or not same or flips is not None:
+                fail(f"13e ({where}): route {route}, pages equal {same}, tokens divergence at "
+                     f"{flips}")
+            res[where] = float(r2["headers"].get("x-kv-pull-ms") or 0)
+    finally:
+        await d_srv.stop()
+    return {"launches": k1, "pull_ms": res}
+
+
+async def phase_dist_pd(params, cfg_model, card: str, logs: str, mono: list[int],
+                        model: str = MODEL, wires: tuple[str, ...] = ("host", "device")) -> dict:
+    """13f: a tp=2 two-process prefill group hands off to a tp=2
+    two-process decode group, over the host shard wire and over the device
+    wire: route ``shard-wire`` / ``device``; each process's imported pages
+    equal, bitwise per shard, the shards its counterpart staged (pulled here
+    over the same wire before the handoff, digests compared in place); the
+    greedy tokens equal a monolithic engine's. Returns the decode groups' K1
+    launches (summed) per wire."""
+    from llm_d_inference_scheduler_tpu_torch.engine import kv_shards, kv_transfer, shard_wire
+    from llm_d_inference_scheduler_tpu_torch.ops import paged_attention
+
+    prompt = pd_prompts()["serial"]
+    body = {"prompt": prompt, "max_tokens": PD_TOKENS, "temperature": 0, "ignore_eos": True}
+    out = {}
+    for wire in wires:
+        tag = f"dist P/D tp2 {wire} wire"
+        pre = DistGroup(model, params, f"{tag} prefill", logs, tp=2, wire=wire)
+        dec = DistGroup(model, params, f"{tag} decode", logs, tp=2, wire=wire)
+        blocks: dict = {}
+        copy = dec.engine._copy_shards
+
+        def tap(shards, b, shape, copy=copy, blocks=blocks):
+            blocks["ids"] = list(b)
+            copy(shards, b, shape)
+
+        dec.engine._copy_shards = tap
+        await pre.start()
+        await dec.start()
+        d_tokens, _ = tap_engine(dec.engine)
+        try:
+            r1 = await asyncio.to_thread(http_post, pre.server.port, {
+                **body, "max_tokens": 1, "request_id": "f-pre",
+                "kv_transfer_params": {"do_remote_decode": True}})
+            ktp = r1["json"]["kv_transfer_params"]
+            addrs = ktp.get(f"kv_wire_{wire}") or []
+            if len(addrs) != DIST_PROCS or not all(addrs) or "transfer_shards" in ktp:
+                fail(f"{tag}: the exporter group advertised {ktp}")
+            seq = int(ktp["remote_seq_len"])
+            staged = []   # each exporter process's shard digests, pulled here
+            for addr in addrs:
+                if wire == "host":
+                    shards = shard_wire.pull_shards(addr, int(ktp["transfer_uuid"]))
+                    staged.append([kv_shards.shard_digest(t, seq) for t in shards])
+                else:
+                    shards, done = kv_transfer.pull(addr, int(ktp["transfer_uuid"]))
+                    staged.append([kv_shards.shard_digest(t, seq) for t in shards])
+                    torch.cuda.synchronize()
+                    done()
+            await asyncio.to_thread(dec.engine.group_launches, True)
+            r2 = await asyncio.to_thread(http_post, dec.server.port, {
+                **body, "request_id": "f-dec", "kv_transfer_params": ktp})
+            per = await asyncio.to_thread(dec.engine.group_launches)
+            digests = await asyncio.to_thread(dec.engine.page_digests, blocks.get("ids", []), seq)
+        finally:
+            await dec.stop()
+            await pre.stop()
+        route = r2["headers"].get("x-kv-pull-route")
+        want_route = "device" if wire == "device" else "shard-wire"
+        same = staged == digests and all(len(d) == 2 for d in digests)
+        # Two processes' tp=2 sums against one rank's: a flip passes only at
+        # a near-tie of the reference's top-2 logits.
+        flips = near_tie_flips(tag, params, cfg_model, [pre.engine.tokenizer.encode(prompt)],
+                               {"f": mono}, {"f": d_tokens["f-dec"]}, ["f"])
+        k1 = sum(p[paged_attention.KERNEL] for p in per)
+        log(f"[13f] {tag}, {card}: backends {pre.backend}/{dec.backend}, route {route}, "
+            f"{r2['headers'].get('x-kv-pull-bytes')} bytes in {r2['headers'].get('x-kv-pull-ms')} "
+            f"ms; imported pages bitwise the staged shards in each process ({len(digests)} "
+            f"processes x K, V): {same}; K1 by process {[p[paged_attention.KERNEL] for p in per]}; "
+            f"greedy tokens against the monolithic engine's: {flips or 'equal'}")
+        if route != want_route or not same:
+            fail(f"{tag}: route {route} (want {want_route}), pages equal {same} "
+                 f"({staged} vs {digests})")
+        out[wire] = {"launches": k1, "pull_ms": float(r2["headers"].get("x-kv-pull-ms") or 0)}
+    return out
+
+
+def dist_follower(argv: list[str]) -> int:
+    """``--dist-follower [--kv-wire WIRE] <server arguments>``: a group's
+    follower for a model directory or with its ``kv_wire`` set: join the
+    group, draw this process's ranks' weights from the seed (the full
+    tensors one at a time, keeping its shards), build the engine and replay
+    the leader's ops (``engine/multihost.py``)."""
+    import logging
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from llm_d_inference_scheduler_tpu_torch.engine import multihost
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.server import parse_config
+    from llm_d_inference_scheduler_tpu_torch.models import llama
+    from llm_d_inference_scheduler_tpu_torch.parallel import serve as par
+    from llm_d_inference_scheduler_tpu_torch.utils.device import resolve_device
+
+    logging.basicConfig(level=logging.INFO)
+    wire = "auto"
+    if argv[:1] == ["--kv-wire"]:
+        wire, argv = argv[1], argv[2:]
+    cfg = dataclasses.replace(parse_config(argv)[0], kv_wire=wire)
+    names = cfg.rank_devices()
+    comm = multihost.maybe_init_distributed(cfg, [resolve_device(d) for d in names])
+    layout = par.make_serve_layout(names, cfg.tp_size, cfg.ep_size, cfg.pp_size, comm)
+    mcfg = cfg.model_config
+    dev = layout.first_device
+    params = llama.init_params(mcfg, dev, cfg.dtype or mcfg.dtype,
+                               torch.Generator(device=dev).manual_seed(cfg.seed),
+                               layout=layout)
+    engine = TorchEngine(cfg, params=params, comm=comm)
+    try:
+        multihost.run_follower(engine)
+    finally:
+        engine.close()
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--dist-follower"]:
+        return dist_follower(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3183,6 +3899,17 @@ def main() -> int:
     asyncio.run(phase_tls_chaos(params, card))
     pp_llama = asyncio.run(phase_pp(cfg, params, card, model=MODEL, served=MODEL, pp=PP))
     pp_pd_launches = asyncio.run(phase_pp_pd(cfg, params, card))
+    # 13. multi-process groups (followers from the server CLI) and the KV
+    # wires, on the same weights: 13a tp=2 over two processes, 13d the
+    # drills, 13e the device wire, 13f P/D between two tp=2 groups.
+    logs = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    t13 = time.monotonic()
+    dist_tp = asyncio.run(phase_dist_tp(cfg, params, card, logs))
+    drill_s = asyncio.run(drill_leader_lost(logs))
+    mono_pd = mono_tokens(params, pd_prompts()["serial"])
+    dev_wire = asyncio.run(phase_device_wire(params, card, logs, mono_pd))
+    dist_pd = asyncio.run(phase_dist_pd(params, cfg, card, logs, mono_pd))
+    t13 = time.monotonic() - t13
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3205,6 +3932,11 @@ def main() -> int:
                                                   served=LLAMA70B_SERVED, pp=pp, tp=tp,
                                                   ref=ref))
             ref = pp_70b[pp, tp]["ref"]
+        # 13b: pp=2 over two processes, one stage each, against pp=1.
+        t0 = time.monotonic()
+        dist_70b = asyncio.run(phase_dist_pp(cfg70, params, card, logs, model=model_dir,
+                                             served=LLAMA70B_SERVED, ref=ref))
+        t13 += time.monotonic() - t0
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3225,6 +3957,24 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    # 13c: Mixtral (8 of 32 layers: each process draws a stacked tensor
+    # whole) with pp=2 over two processes, the grouped FFN selected by the
+    # model_config.json (moe_impl "grouped", as the JAX configs select it),
+    # against pp=1 grouped.
+    t0 = time.monotonic()
+    moe8 = dataclasses.replace(get_config(MOE_MODEL), n_layers=MOE_DIST_LAYERS,
+                               moe_impl="grouped")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init_params(moe8, "cuda", "bfloat16", gen)
+    with tempfile.TemporaryDirectory() as model_dir:
+        with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(moe8), f)
+        dist_moe = asyncio.run(phase_dist_pp(moe8, params, card, logs, model=model_dir,
+                                             served=MOE_DIST_SERVED))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t13 += time.monotonic() - t0
     # 12. the CPU simulator from the parser: no kernel.
     asyncio.run(phase_sim(card))
     K1 = paged_attention.KERNEL
@@ -3250,6 +4000,26 @@ def main() -> int:
                  "launches_by_path": pp_moe["paths"]},
                 {**k1_by_shape[32, 8, 2], "path": f"{MOE_SERVED} pp{PP}ep{EP} serve",
                  "launches": pp_moe_ep["launches"][K1]}]
+    # Phase 13's paths, launches summed over each group's processes.
+    entries += [{**k1_by_shape[16, 4, 4], "path": f"{MODEL} dist tp2 serve",
+                 "launches": dist_tp["launches"]},
+                {**k1_by_shape[64, 8, 2], "path": f"{LLAMA70B_SERVED} dist pp2 serve",
+                 "launches": dist_70b["launches"][K1]},
+                {**k1_by_shape[32, 8, 2], "path": f"{MOE_DIST_SERVED} dist pp2 serve",
+                 "launches": dist_moe["launches"][K1]},
+                {**k2_pp, "path": f"{MOE_DIST_SERVED} dist pp2 serve",
+                 "launches": dist_moe["launches"][grouped_moe.KERNEL]},
+                {**k1_by_shape["pd"], "path": f"{MODEL} device-wire P/D decode",
+                 "launches": dev_wire["launches"]},
+                {**k1_by_shape[16, 4, 1], "path": f"{MODEL} dist tp2 P/D decode (host wire)",
+                 "launches": dist_pd["host"]["launches"]},
+                {**k1_by_shape[16, 4, 1], "path": f"{MODEL} dist tp2 P/D decode (device wire)",
+                 "launches": dist_pd["device"]["launches"]}]
+    log(f"[13] {card}: multi-process phases in {t13:.1f}s; backend {dist_tp['backend']}; "
+        f"the follower-loss drill ended the request in {dist_tp['drill']['ended_s']:.2f}s, "
+        f"the leader-loss drill ended the follower in {drill_s:.2f}s; device-wire pulls "
+        f"{dev_wire['pull_ms']} ms, group P/D pulls "
+        f"{ {w: r['pull_ms'] for w, r in dist_pd.items()} } ms")
 
 
     log(f"[done] launches on the main paths: llama3-8b serve {dense_launches}, "

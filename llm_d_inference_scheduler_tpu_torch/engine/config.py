@@ -81,6 +81,32 @@ class EngineConfig:
     # as above; every path runs the stages in turn. Composes with tp_size
     # and ep_size (pp_size * tp_size * ep_size ranks in all).
     pp_size: int = 1
+    # Multi-process serving (engine/multihost.py): when dist_coordinator is
+    # set ("host:port" of the group's rendezvous store, hosted by process 0),
+    # dist_num_processes engine processes serve as ONE engine, the
+    # pp_size * tp_size * ep_size ranks split over them in process-major
+    # order (devices names each process's own). Process 0 serves HTTP; the
+    # others replay its device ops from the instruction channel on
+    # dist_instr_port.
+    dist_coordinator: str = ""
+    dist_num_processes: int = 1
+    dist_process_id: int = 0
+    dist_instr_port: int = 8790
+    dist_instr_host: str = ""     # leader bind / follower dial; default host
+    # Follower liveness deadline: no instruction or ping within this window
+    # -> LeaderLost (the follower exits for a group restart).
+    dist_recv_timeout_s: float = 30.0
+    # Wire for a multi-process group's sharded P/D KV handoff: "device" = the
+    # CUDA IPC device wire (engine/kv_transfer.py), "host" = per-process TCP
+    # shard servers (engine/shard_wire.py), "auto" = device on the card,
+    # host on the CPU.
+    kv_wire: str = "auto"
+    # P/D KV handoff data path: "device" = the device wire (a device-to-device
+    # copy from the exporter's staged pages; raises if it cannot start),
+    # "host" = host-staged bytes over HTTP /kv only, "auto" = the device wire
+    # on the card, host on the CPU. The HTTP path stays as the fallback of a
+    # single-process engine.
+    kv_transfer: str = "auto"
     device: str = "cuda"          # "cpu" only when asked (tests)
     # The device of each of the pp_size * tp_size * ep_size ranks,
     # comma-separated in rank order (a device may repeat: two ranks can
@@ -107,14 +133,21 @@ class EngineConfig:
     chaos: str = ""
     chaos_seed: int = 0
 
+    @property
+    def dist(self) -> bool:
+        return bool(self.dist_coordinator) and self.dist_num_processes > 1
+
     def rank_devices(self) -> list[str] | None:
-        """The device of each pp * tp * ep rank: ``devices`` when given, the
-        CPU for every rank when ``device`` is "cpu", else None (the first
-        CUDA devices, ``parallel.serve.make_serve_layout``'s default)."""
+        """The device of each of this process's pp * tp * ep ranks (all of
+        them, or its share in a multi-process group): ``devices`` when
+        given, the CPU for every rank when ``device`` is "cpu", else None
+        (the first CUDA devices, ``parallel.serve.make_serve_layout``'s
+        default)."""
         if self.devices:
             return [d.strip() for d in self.devices.split(",")]
         if self.device.split(":")[0] == "cpu":
-            return [self.device] * (self.pp_size * self.tp_size * self.ep_size)
+            n = self.pp_size * self.tp_size * self.ep_size
+            return [self.device] * (n // self.dist_num_processes if self.dist else n)
         return None
 
     def resolved_kv_events_port(self) -> int:

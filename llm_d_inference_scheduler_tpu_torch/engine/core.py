@@ -85,9 +85,24 @@ Port of ``TpuEngine`` (``llm_d_inference_scheduler_tpu/engine/core.py``):
   layers' experts whole).
 - A TLS exporter names ``https`` as its ``remote_scheme``; the importer
   dials it with the engine's client TLS policy (``utils/tls.py``).
-
-Not in this slice (the JAX engine has them): the device-to-device transfer
-server and the multi-host KV wires, multi-host.
+- Multi-process serving (``dist_*``; ``engine/multihost.py``): a group of
+  processes serves as one engine, its ranks split over them
+  (``parallel/serve.py``). Every device call goes through ``_device_call``
+  as an op of plain numpy arrays and ints (the JAX op kinds); the leader
+  broadcasts it before running it, followers replay it. A lost follower or a
+  broken channel latches ``dist_degraded``: everything is aborted, new work
+  refused, ``/health`` answers 503.
+- Device wire (``engine/kv_transfer.py``, ``kv_transfer``): an exporter
+  stages its page shards on the device and serves CUDA IPC handles; a
+  single-process importer copies device to device, then releases the export
+  with ``consumed="device"``. A multi-process group hands KV to another
+  over per-process shard wires (``kv_wire``: the device wire or the host
+  ``engine/shard_wire.py``), each process pulling its own shards from its
+  counterpart; a group has no host ``/kv`` path, so an importer group with
+  no usable wire prefills locally. The port advertises its wires under keys
+  of its own (``kv_wire_device``, ``kv_wire_host``), never the JAX
+  ``transfer_address``/``transfer_shards``, whose pull blocks on a peer that
+  is not JAX; it ignores those keys from a JAX exporter.
 """
 
 from __future__ import annotations
@@ -117,7 +132,7 @@ from ..parallel import serve as par
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.hashing import chain_block_hashes
 from ..utils.tls import client_verify
-from . import checkpoint, kv_wire
+from . import checkpoint, kv_shards, kv_transfer, kv_wire, multihost, shard_wire
 from .blocks import BlockAllocator, PrefixCachingAllocator
 from .config import EngineConfig
 from .kv_events import KvEventPublisher, zmq_available
@@ -161,22 +176,35 @@ class _Slot:
 @dataclasses.dataclass
 class _PendingImport:
     """A decode request whose KV is being (or has been) pulled: the
-    exporter's geometry headers and its K and V as host tensors."""
+    exporter's geometry headers and its K and V as host tensors (the /kv
+    route), or its shards on the device (the device wire; ``done`` closes
+    them), or, in a group, a coordinated pull the engine thread runs as an
+    op on every process (``dist_pull``)."""
     req: EngineRequest
     out: asyncio.Queue
     loop: asyncio.AbstractEventLoop
     kv: tuple[torch.Tensor, torch.Tensor] | None = None
     headers: dict[str, str] | None = None
+    shards: list[torch.Tensor] | None = None
+    done: Any = None
+    open_s: float = 0.0  # the device pull's handle exchange and open
+    dist_pull: bool = False
     error: str | None = None
 
 
 class TorchEngine:
     """Continuous-batching engine over models.llama with paged KV on the device."""
 
-    def __init__(self, cfg: EngineConfig, params: dict[str, Any] | None = None):
+    def __init__(self, cfg: EngineConfig, params: dict[str, Any] | None = None,
+                 *, comm: par.Comm | None = None):
+        """``comm``: the group's collectives, for a multi-process engine
+        whose caller built the group (tests with a store shared by threads);
+        by default the engine joins the group ``cfg.dist_*`` names."""
         self.cfg = cfg
         self.mcfg = cfg.model_config
-        if cfg.grouped_moe and self.mcfg.n_experts:
+        # The grouped FFN: the engine's switch, or a model directory whose
+        # model_config.json selects it (moe_impl "grouped", as the JAX one).
+        if (cfg.grouped_moe or self.mcfg.moe_impl == "grouped") and self.mcfg.n_experts:
             if cfg.tp_size > 1 or cfg.ep_size > 1:
                 raise ValueError("grouped_moe requires tp_size=ep_size=1 "
                                  "(the sharded path stays dense)")
@@ -193,11 +221,19 @@ class TorchEngine:
         # (parallel/serve.py); the first (stage 0's) holds the embedding,
         # the head, sampling and the vision tower.
         self.layout: par.ServeLayout | None = None
-        if cfg.pp_size * cfg.tp_size * cfg.ep_size > 1:
+        self._dist = cfg.dist
+        self.comm = None
+        if cfg.pp_size * cfg.tp_size * cfg.ep_size > 1 or self._dist:
             par.validate_degrees(self.mcfg, cfg.tp_size, cfg.ep_size, cfg.pp_size)
-            self.layout = par.make_serve_layout(cfg.rank_devices(), cfg.tp_size,
-                                                cfg.ep_size, cfg.pp_size)
-            self.device = self.layout.devices[0]
+            names = cfg.rank_devices()
+            if self._dist:
+                par.validate_dist(cfg.tp_size, cfg.ep_size, cfg.pp_size,
+                                  cfg.dist_num_processes)
+                self.comm = comm or multihost.maybe_init_distributed(
+                    cfg, [resolve_device(d) for d in (names or ["cuda"])])
+            self.layout = par.make_serve_layout(names, cfg.tp_size, cfg.ep_size,
+                                                cfg.pp_size, self.comm)
+            self.device = self.layout.first_device
         else:
             self.device = resolve_device((cfg.rank_devices() or [cfg.device])[0])
         # Before any weight is read: a tokenizer that cannot load fails fast.
@@ -240,6 +276,9 @@ class TorchEngine:
         # exposed_ms]}), written by the fetch thread, popped by the server
         # for x-kv-pull-*. Bounded ring.
         self.kv_import_stats: dict[str, dict[str, Any]] = {}
+        # Pulls by wire: the device wire, or host bytes (/kv or a shard wire).
+        self.kv_import_device_count = 0
+        self.kv_import_host_count = 0
         self._kv_import_order: collections.deque[str] = collections.deque()
         # KV events (None when cfg.resolved_kv_events_port() is 0); the
         # server attaches the SSE hub, start() decides the ZMQ leg.
@@ -247,8 +286,50 @@ class TorchEngine:
             KvEventPublisher(self.engine_id, host=cfg.host)
             if cfg.resolved_kv_events_port() else None)
         self._last_kv_snapshot = 0.0
-        # embed() requests for the engine thread: (token ids, Future).
-        self._embed_reqs: list[tuple[list[int], concurrent.futures.Future]] = []
+        # Device ops other threads ask of the engine thread (embeddings, the
+        # group's launch counts): (op, args, Future), run in order with the
+        # engine's own, so a group's followers replay them in order too.
+        self._op_reqs: list[tuple[tuple, dict, concurrent.futures.Future]] = []
+        # P/D KV wires (engine/kv_transfer.py, engine/shard_wire.py), started
+        # before the instruction channel so a follower's hello names them.
+        self.kv_device_wire: kv_transfer.DeviceWireServer | None = None
+        self.kv_shard_wire: shard_wire.ShardWireServer | None = None
+        self._kv_wire = cfg.kv_wire
+        if self._kv_wire == "auto":
+            self._kv_wire = "device" if self.device.type == "cuda" else "host"
+        transfer = cfg.kv_transfer
+        if transfer == "auto":
+            transfer = "device" if self.device.type == "cuda" else "host"
+        if self._dist:
+            if self._kv_wire == "host":
+                self.kv_shard_wire = shard_wire.ShardWireServer(cfg.host)
+            else:
+                self.kv_device_wire = kv_transfer.DeviceWireServer(cfg.host, self.device)
+        elif transfer == "device":
+            try:
+                self.kv_device_wire = kv_transfer.DeviceWireServer(cfg.host, self.device)
+            except Exception:
+                if cfg.kv_transfer == "device":
+                    raise
+                log.info("device wire unavailable; host-staged /kv handoff only",
+                         exc_info=True)
+        # Multi-process: the instruction channel, and the degrade latch set
+        # when a follower dies or the channel breaks (a further collective
+        # would hang: the engine aborts everything and refuses work).
+        self.dist_degraded = False
+        self._release_reqs: list[tuple[str, str]] = []
+        self._instr_channel: multihost.InstructionChannel | None = None
+        if self._dist:
+            self._instr_channel = multihost.InstructionChannel(
+                leader=cfg.dist_process_id == 0,
+                host=cfg.dist_instr_host or cfg.host, port=cfg.dist_instr_port,
+                n_followers=cfg.dist_num_processes - 1,
+                recv_timeout=cfg.dist_recv_timeout_s,
+                hello={"process_id": cfg.dist_process_id,
+                       "shard_wire_address": self._wire_address(self.kv_shard_wire),
+                       "device_wire_address": self._wire_address(self.kv_device_wire)})
+            if self._instr_channel.leader:
+                self._instr_channel.on_peer_lost = self._on_follower_lost
 
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
@@ -311,9 +392,39 @@ class TorchEngine:
             self._cond.notify()
         if self._thread:
             self._thread.join(timeout=30)
-        self._fail_embeds("engine stopping")
+        self._fail_ops("engine stopping")
+        self.close()
+
+    def close(self) -> None:
+        """Release the followers (leader), and close the instruction
+        channel, the KV wires and the event publisher."""
+        if self._instr_channel is not None:
+            if self._instr_channel.leader:
+                # The channel's threads outlive close() by up to a ping
+                # interval: they must not keep the engine (its weights) alive.
+                self._instr_channel.on_peer_lost = None
+                try:
+                    self._instr_channel.broadcast(("stop",), {})
+                except Exception:
+                    log.exception("failed to release followers")
+            self._instr_channel.close()
+        for wire in (self.kv_device_wire, self.kv_shard_wire):
+            if wire is not None:
+                wire.close()
         if self.kv_events is not None:
             self.kv_events.close()
+
+    @staticmethod
+    def _wire_address(wire) -> str | None:
+        return wire.address() if wire is not None else None
+
+    def layout_summary(self) -> str:
+        lay = self.layout
+        if lay is None:
+            return f"one rank on {self.device}"
+        return (f"pp={lay.pp} tp={lay.tp} ep={lay.ep}, process {lay.comm.rank if lay.comm else 0}"
+                f" of {lay.procs}, ranks on {[str(d) for d in lay.devices]}"
+                + (f", backend {lay.comm.backend}" if lay.comm else ""))
 
     def _zmq_events_port(self) -> int:
         """The ZMQ leg's port: an explicit ``kv_events_port`` needs pyzmq
@@ -342,7 +453,7 @@ class TorchEngine:
         with self._cond:
             if (any(s is not None for s in self.slots) or self._waiting
                     or self._import_ready or self._kv_fetching
-                    or self._embed_reqs):
+                    or self._op_reqs or self._release_reqs):
                 return False
         with self._exports_lock:
             return not self.kv_exports
@@ -366,10 +477,25 @@ class TorchEngine:
             self._abort_ids.add(request_id)
             self._cond.notify()
 
-    def release_kv_export(self, request_id: str) -> None:
-        """Drop a staged P/D export once the decode side has pulled it."""
+    def release_kv_export(self, request_id: str, *, consumed: str = "host") -> None:
+        """Drop a staged P/D export once the decode side has pulled it
+        (``consumed``: over which wire; the staged tensors go either way).
+        In a group every process staged its own shards, so the release is
+        queued for the engine thread, which broadcasts it as an op."""
+        if self._dist:
+            with self._cond:
+                self._release_reqs.append((request_id, consumed))
+                self._cond.notify()
+            return
+        self._release_export_local(request_id)
+
+    def _release_export_local(self, request_id: str) -> None:
         with self._exports_lock:
-            self.kv_exports.pop(request_id, None)
+            rec = self.kv_exports.pop(request_id, None)
+        if rec is not None and rec.get("tuid") is not None:
+            for wire in (self.kv_device_wire, self.kv_shard_wire):
+                if wire is not None:
+                    wire.unregister(rec["tuid"])
 
     def get_kv_export(self, request_id: str) -> dict[str, Any] | None:
         with self._exports_lock:
@@ -387,12 +513,59 @@ class TorchEngine:
         out."""
         if not ids:
             raise ValueError("embed needs at least one token")
+        return self._on_engine_thread(("embed",), {"ids": np.asarray(ids, np.int64)},
+                                      "embeddings")
+
+    def group_launches(self, reset: bool = False) -> list[dict[str, int]]:
+        """Every process's kernel launch counts (``ops.kernel_launches``), in
+        process order (one entry for a single process), read on the engine
+        thread in order with its ops; ``reset`` sets them to 0 after the
+        read."""
+        return self._on_engine_thread(("launches",), {"reset": bool(reset)},
+                                      "launch counts")
+
+    def last_logits(self, ids: list[int]) -> np.ndarray:
+        """The f32 logits [V] at the last position of a prompt's forward
+        (every process of a group takes part), read on the engine thread:
+        the diagnostic that holds a sharded or staged model to one rank."""
+        return self._on_engine_thread(("logits",), {"ids": np.asarray(ids, np.int64)},
+                                      "logits")
+
+    def check_kernels(self, atol: float, rtol: float, moe_rel: float,
+                      seed: int = 0) -> list[dict[str, tuple[float, bool]]]:
+        """Every process launches its kernels at its own shapes and weights,
+        on its own devices, and holds each to its plain version: K1 for each
+        page shard it holds, on random pages of that shard's geometry (block
+        size, local KV heads, head dim, dtype) read through a shuffled block
+        table as wide as ``max_model_len``, one row at that length and three
+        shorter (elementwise within ``atol + rtol * |plain|``); K2 on its
+        first layer's experts where the grouped FFN serves (within
+        ``moe_rel * (|plain| + rms(plain))``). The engine's own pages are
+        neither read nor written. Returns
+        {kernel: (max abs error, within tolerance)} per process, in process
+        order. Its launches count like any other: read the counts after."""
+        return self._on_engine_thread(("kernel_check",), dict(
+            atol=float(atol), rtol=float(rtol), moe_rel=float(moe_rel), seed=int(seed)),
+            "kernel checks")
+
+    def page_digests(self, blocks: list[int], n_tokens: int) -> list[list[str]]:
+        """Every process's ``kv_shards.shard_digest`` of each page shard it
+        holds (K then V, canonical order) at ``blocks``' first ``n_tokens``
+        positions, in process order: the bytes of an import, compared
+        without moving them."""
+        return self._on_engine_thread(("page_digest",), {
+            "blocks": np.asarray(blocks, np.int64), "n_tokens": int(n_tokens)},
+            "page digests")
+
+    def _on_engine_thread(self, op: tuple, args: dict, what: str):
         fut: concurrent.futures.Future = concurrent.futures.Future()
         with self._cond:
             if self._stop or self._thread is None:
-                raise ValueError("engine unavailable for embeddings "
+                raise ValueError(f"engine unavailable for {what} "
                                  "(not started or stopping)")
-            self._embed_reqs.append((list(ids), fut))
+            if self.dist_degraded:
+                raise ValueError(f"engine degraded: no {what}")
+            self._op_reqs.append((op, args, fut))
             self._cond.notify()
         return fut.result(timeout=self.EMBED_TIMEOUT_S)
 
@@ -453,8 +626,9 @@ class TorchEngine:
             while True:
                 with self._cond:
                     while (not self._stop and not self._waiting
-                           and not self._import_ready and not self._embed_reqs
-                           and not self._abort_ids and not any(self.slots)):
+                           and not self._import_ready and not self._op_reqs
+                           and not self._release_reqs and not self._abort_ids
+                           and not any(self.slots)):
                         self._cond.wait(timeout=0.1)
                         self._sweep_exports()
                         # A subscriber that joins an idle, warm engine must
@@ -462,8 +636,20 @@ class TorchEngine:
                         self._publish_kv_snapshot()
                     if self._stop:
                         return
+                if self.dist_degraded:
+                    # Drain everything, queued work included, without
+                    # touching the device: a collective would hang on the
+                    # lost peer.
+                    with self._cond:
+                        self._abort_ids.clear()
+                        self._release_reqs.clear()
+                    self._abort_all("multi-host peer lost")
+                    continue
                 try:
                     self._step()
+                except multihost.ChannelBroken:
+                    log.error("instruction channel broken; degrading")
+                    self.dist_degraded = True
                 except Exception:
                     log.exception("engine loop failure; aborting in-flight requests")
                     self._abort_all()
@@ -520,7 +706,8 @@ class TorchEngine:
                  time.monotonic() - t0)
 
     def _step(self):
-        self._drain_embed_reqs()
+        self._drain_release_reqs()
+        self._drain_op_reqs()
         self._sweep_exports()
         self._publish_kv_snapshot()
         self._process_aborts()
@@ -541,7 +728,7 @@ class TorchEngine:
                     # Head-of-line can't be placed yet: sleep until it can.
                     self._cond.wait(timeout=0.05)
 
-    def _abort_all(self):
+    def _abort_all(self, why: str = "engine loop failure"):
         for i, s in enumerate(self.slots):
             if s is not None:
                 self._finish_slot(i, FinishReason.ABORT)
@@ -549,34 +736,54 @@ class TorchEngine:
             drained, self._waiting = self._waiting, []
             self.telemetry.waiting.set(0)
             imports, self._import_ready = self._import_ready, []
-        self._fail_embeds("engine loop failure")
+        self._fail_ops(why)
+        for pi in imports:
+            if pi.done is not None:
+                pi.done()  # close a device pull's IPC handles
         drained += [(pi.req, pi.out, pi.loop) for pi in imports]
         for req, out, loop in drained:
             self._abort_to(out, loop, req, len(req.prompt_token_ids))
 
-    def _fail_embeds(self, why: str) -> None:
+    def _fail_ops(self, why: str) -> None:
         with self._cond:
-            reqs, self._embed_reqs = self._embed_reqs, []
-        for _, fut in reqs:
+            reqs, self._op_reqs = self._op_reqs, []
+        for op, _, fut in reqs:
             if not fut.done():
-                fut.set_exception(ValueError(f"embed not run: {why}"))
+                fut.set_exception(ValueError(f"{op[0]} not run: {why}"))
 
-    def _drain_embed_reqs(self):
+    def _drain_op_reqs(self):
         with self._cond:
-            reqs, self._embed_reqs = self._embed_reqs, []
-        for ids, fut in reqs:
+            reqs, self._op_reqs = self._op_reqs, []
+        for op, args, fut in reqs:
             if not fut.set_running_or_notify_cancel():
                 continue
             try:
-                fut.set_result(self._run_embed(ids))
+                fut.set_result(self._device_call(op, args))
+            except multihost.ChannelBroken as e:
+                fut.set_exception(e)
+                raise
             except Exception as e:
                 fut.set_exception(e)
 
-    def _run_embed(self, ids: list[int]) -> np.ndarray:
-        hidden, _ = llama.forward(self.params, self.mcfg,
-                                  self._to_dev(np.asarray([ids], np.int32)),
-                                  want_hidden=True)
-        return hidden[0].mean(dim=0).cpu().numpy()
+    def _drain_release_reqs(self):
+        """Broadcast the queued export releases (multi-process: every process
+        drops its own staged shards)."""
+        with self._cond:
+            reqs, self._release_reqs = self._release_reqs, []
+        for rid, consumed in reqs:
+            self._device_call(("release_kv_export",),
+                              {"request_id": rid, "consumed": consumed})
+
+    def _on_follower_lost(self, idx: int, why: str) -> None:
+        """The instruction channel's peer-monitor callback (its watch
+        thread): the group's lockstep is over."""
+        log.error("follower %d lost (%s): engine degrading; the group needs "
+                  "a coordinated restart", idx, why)
+        self.dist_degraded = True
+        if self.comm is not None:
+            self.comm.abort()  # a collective in flight raises now
+        with self._cond:
+            self._cond.notify()
 
     def _publish_kv_snapshot(self):
         """Re-publish the cache's block hashes at most once a second (SSE
@@ -601,13 +808,15 @@ class TorchEngine:
             self.kv_events.publish(event, hashes)
 
     def _sweep_exports(self):
+        if self._instr_channel is not None and not self._instr_channel.leader:
+            return  # a follower's exports go with the leader's releases
         now = time.monotonic()
         with self._exports_lock:
             expired = [rid for rid, rec in self.kv_exports.items()
                        if now - rec["created"] > KV_EXPORT_TTL_S]
-            for rid in expired:
-                log.warning("kv export %s expired unclaimed; dropping", rid)
-                self.kv_exports.pop(rid, None)
+        for rid in expired:
+            log.warning("kv export %s expired unclaimed; dropping", rid)
+            self.release_kv_export(rid)
 
     def _process_aborts(self):
         with self._cond:
@@ -932,15 +1141,11 @@ class TorchEngine:
         (cached or already written) blocks, else the whole prompt runs, with
         the request's multimodal embeddings spliced in."""
         if matched_bids:
-            logits, _, _ = llama.prefill_with_prefix(
-                self.params, self.mcfg,
-                self._to_dev(np.asarray([suffix], np.int32)),
-                self._to_dev(np.asarray([len(suffix)], np.int32)),
-                self._to_dev(np.asarray([cached_tokens], np.int32)),
-                self.k_pages, self.v_pages, self._to_dev(row),
-                self._to_dev(np.asarray([matched_bids], np.int32)))
-            knobs = SamplingKnobs.from_numpy(*self._sample_np([req]), self.device)
-            return sample_tokens(logits, self._sample_gen, knobs)
+            return self._device_call(("prefix_prefill",), dict(
+                tokens=np.asarray([suffix], np.int32),
+                suffix_len=np.asarray([len(suffix)], np.int32),
+                prefix_len=np.asarray([cached_tokens], np.int32), row=row,
+                prior=np.asarray([matched_bids], np.int32), **self._sample_args([req])))
         return self._prefill_rows([req], [prompt], row, **self._mm_args(req))[0]
 
     def _prefill_rows(self, reqs, prompts, rows: np.ndarray, **mm) -> torch.Tensor:
@@ -949,37 +1154,27 @@ class TorchEngine:
         rows and no bucket padding): each row's KV goes to its block-table
         row ``rows[k]`` (padding positions to the trash block 0) and its
         first token is sampled at its last real position. Returns the
-        tokens [N] on the device."""
+        tokens [N] on the device (the ``prefill`` op, ``mm_prefill`` with
+        multimodal embeddings)."""
         N, S = len(prompts), max(len(p) for p in prompts)
         tokens = np.zeros((N, S), np.int32)
         for k, p in enumerate(prompts):
             tokens[k, : len(p)] = p
-        lens = self._to_dev(np.asarray([len(p) for p in prompts], np.int32))
-        knobs = SamplingKnobs.from_numpy(*self._sample_np(reqs), self.device)
-        hidden, (k_new, v_new) = llama.forward(self.params, self.mcfg,
-                                               self._to_dev(tokens), want_kv=True,
-                                               want_hidden=True, **mm)
-        llama.write_prefill_kv(self.k_pages, self.v_pages, k_new, v_new,
-                               self._to_dev(rows), lens)
-        # Only each row's last real position needs the LM head (the hidden
-        # state is the forward's f32 copy of a bf16/f32 value: the cast back
-        # is exact).
-        last = hidden[torch.arange(N, device=self.device), (lens - 1).long()]
-        logits = llama.lm_logits(self.params, last.to(self.dtype))
-        return sample_tokens(logits, self._sample_gen, knobs)
+        return self._device_call(("mm_prefill",) if mm else ("prefill",), dict(
+            tokens=tokens, lens=np.asarray([len(p) for p in prompts], np.int32),
+            rows=rows, **self._sample_args(reqs), **mm))
 
-    def _mm_args(self, req: EngineRequest) -> dict[str, torch.Tensor]:
-        """``llama.forward``'s splice arguments for a multimodal request (a
-        batch of one); missing or short ``mm_positions`` default to the
+    def _mm_args(self, req: EngineRequest) -> dict[str, np.ndarray]:
+        """The ``mm_prefill`` op's splice arguments for a multimodal request
+        (a batch of one); missing or short ``mm_positions`` default to the
         image-first layout, as in the JAX engine."""
         if req.mm_embeds is None:
             return {}
         mm = np.asarray(req.mm_embeds, np.float32)
         positions = list(req.mm_positions or [])
         positions += range(len(positions), mm.shape[0])
-        return {"mm_embeds": self._to_dev(mm[None]),
-                "mm_positions": self._to_dev(
-                    np.asarray([positions[: mm.shape[0]]], np.int64))}
+        return {"mm_embeds": mm[None],
+                "mm_positions": np.asarray([positions[: mm.shape[0]]], np.int64)}
 
     def _finalize_prefills(self):
         """Land pending first tokens and emit/finish accordingly."""
@@ -1070,10 +1265,12 @@ class TorchEngine:
     # ---- P/D export (prefill side) ---------------------------------------
 
     def _page_pairs(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
-        """(K, V) pages per (stage, tp) rank (one pair on one device)."""
+        """(K, V) pages per (stage, tp) rank this process holds (one pair on
+        one device), in canonical shard order."""
         if self.layout is None:
             return [(self.k_pages, self.v_pages)]
-        return list(zip(self.k_pages, self.v_pages))
+        return list(zip(kv_shards.local_unique_shards(self.k_pages),
+                        kv_shards.local_unique_shards(self.v_pages)))
 
     def _gather_to_host(self, ids: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
         """The pages of ``ids`` as host tensors [L, len(ids), block, Hkv, Dh]:
@@ -1095,8 +1292,8 @@ class TorchEngine:
         export record, created at the first chunk (``complete=False``) so the
         drain gate holds the engine for the decode peer from then on."""
         ktp = s.req.kv_transfer_params or {}
-        if not (ktp.get("do_remote_decode") and ktp.get("stream_chunks")):
-            return
+        if not (ktp.get("do_remote_decode") and ktp.get("stream_chunks")) or self._dist:
+            return  # a group's export has no host /kv route
         rid = s.req.request_id
         with self._exports_lock:
             rec = self.kv_exports.get(rid)
@@ -1119,14 +1316,35 @@ class TorchEngine:
         rec["blocks_staged"] = upto
         rec["chunks_staged"] += 1
 
-    def _stage_kv(self, request_id: str, ids: list[int], *, stream: bool,
-                  meta: dict[str, Any]) -> dict[str, Any]:
-        """Stage a finished remote-decode prefill's blocks (``ids``,
-        pow2-padded) on the host as its export record. A chunk-streamed
-        export keeps the chunks already staged and reads incomplete until
-        _finalize_chunk_export stages the tail."""
-        k, v = self._gather_to_host(ids)
-        rec = {"k": k, "v": v, "created": time.monotonic(), **meta}
+    def _op_stage_kv(self, request_id: str, idx: np.ndarray, tuid: int,
+                     stream: bool, meta: dict[str, Any]) -> dict[str, Any]:
+        """Stage a finished remote-decode prefill's blocks (``idx``,
+        pow2-padded) as its export record (the ``stage_kv`` op, run on every
+        process of a group): on the host for the /kv route (one process),
+        and each page shard on the device for the KV wires, registered under
+        ``tuid``. A chunk-streamed export keeps the chunks already staged and
+        reads incomplete until _finalize_chunk_export stages the tail."""
+        rec: dict[str, Any] = {"created": time.monotonic(), **meta}
+        pairs = self._page_pairs()
+        ids = torch.from_numpy(np.ascontiguousarray(idx)).long()
+        ks = kv_transfer.stage([k for k, _ in pairs], ids)
+        vs = kv_transfer.stage([v for _, v in pairs], ids)
+        if not self._dist:
+            # The /kv wire's single-device layout (kv-head shards joined,
+            # then stages along the layer axis).
+            tp = self.cfg.tp_size
+            rec["k"] = par.join_pages([t.cpu() for t in ks], tp)
+            rec["v"] = par.join_pages([t.cpu() for t in vs], tp)
+        if self.kv_device_wire is not None or self.kv_shard_wire is not None:
+            shards = ks + vs
+            for wire in (self.kv_device_wire, self.kv_shard_wire):
+                if wire is not None:
+                    wire.register(tuid, shards)
+            rec["tuid"] = tuid
+            if self.comm is not None:
+                # Every process's shards are registered before the leader
+                # names the export: an importer's process may pull at once.
+                self.comm.barrier(self.device)
         with self._exports_lock:
             prev = self.kv_exports.get(request_id)
             if prev is not None and "chunks_staged" in prev:
@@ -1134,7 +1352,7 @@ class TorchEngine:
                             "blocks_staged"):
                     rec[key] = prev[key]
                 rec["complete"] = False
-            elif stream:
+            elif stream and not self._dist:
                 # A short stream_chunks prompt (no mid-prefill chunks): a
                 # puller may already be polling its pre-assigned id.
                 rec.update({"chunk_data": [], "chunk_blocks": [],
@@ -1194,6 +1412,10 @@ class TorchEngine:
                         route: str, exposed_ms: float | None = None) -> None:
         """Record one pull's duration and bytes for x-kv-pull-* on the decode
         response; chunk-streamed pulls also carry the non-overlapped tail."""
+        if route == "device":
+            self.kv_import_device_count += 1
+        else:
+            self.kv_import_host_count += 1
         if request_id not in self.kv_import_stats:
             self._kv_import_order.append(request_id)
         stats = {"ms": (time.monotonic() - t0) * 1e3, "bytes": int(nbytes),
@@ -1204,11 +1426,74 @@ class TorchEngine:
         while len(self._kv_import_order) > self.KV_IMPORT_STATS_CAP:
             self.kv_import_stats.pop(self._kv_import_order.popleft(), None)
 
+    def _wire_route(self, ktp: dict[str, Any]) -> tuple[str, list[str]] | None:
+        """(wire, per-process addresses) of a port exporter's KV wire this
+        engine pulls over, or None when the exporter names none it can use
+        (a JAX exporter's keys are never used). Raises when the exporter's
+        page geometry differs from this engine's."""
+        if self._dist:
+            wire = self._kv_wire
+        elif self.kv_device_wire is not None:
+            wire = "device"
+        else:
+            return None
+        addrs = ktp.get(f"kv_wire_{wire}")
+        if not addrs or not all(addrs) or ktp.get("transfer_uuid") is None:
+            return None
+        theirs = ktp.get("kv_mesh")
+        if theirs != self._mesh_descriptor():
+            raise ValueError(f"page sharding mismatch: {theirs} vs "
+                             f"{self._mesh_descriptor()}")
+        if len(addrs) != (theirs["n_procs"] if theirs else 1):
+            raise ValueError("shard address count != exporter processes")
+        if wire == "device" and not all(kv_transfer.on_this_node(str(a).rpartition(":")[0])
+                                        for a in addrs):
+            # CUDA IPC works only within a node; refused before a group's
+            # leader broadcasts a pull its followers could not finish.
+            raise ValueError(f"device wire addresses {addrs} are not all on this node")
+        return wire, list(addrs)
+
+    def _mesh_descriptor(self) -> dict[str, Any] | None:
+        """The JAX ``mesh_descriptor`` of this engine's page sharding (None
+        for one rank's pages)."""
+        lay = self.layout
+        if lay is None:
+            return None
+        return kv_shards.mesh_descriptor(lay.tp, lay.ep, lay.pp, lay.procs)
+
     def _fetch(self, pi: _PendingImport, ktp: dict[str, Any]) -> None:
-        """Fetch-thread body: pull over the exporter's /kv route (whole, or
-        chunk by chunk), release the export, and hand the import to the
-        engine thread; any failure is recorded on ``pi`` (local prefill)."""
+        """Fetch-thread body: pull over the exporter's KV wire (a group's
+        pull only preflights here: it runs as an op on every process), or
+        over its /kv route (whole, or chunk by chunk), release the export,
+        and hand the import to the engine thread; any failure is recorded on
+        ``pi`` (local prefill)."""
         t0 = time.monotonic()
+        try:
+            route = self._wire_route(ktp)
+            if route is not None:
+                wire, addrs = route
+                if self._dist:
+                    for addr in addrs:
+                        _tcp_preflight(addr)
+                    pi.dist_pull = True
+                else:
+                    pi.shards, pi.done = kv_transfer.pull(addrs[0], int(ktp["transfer_uuid"]))
+                    pi.open_s = time.monotonic() - t0
+                with self._cond:
+                    self._import_ready.append(pi)
+                    self._cond.notify()
+                return
+        except Exception as e:
+            log.warning("kv wire pull for %s failed (%s); %s", pi.req.request_id, e,
+                        "local prefill" if self._dist else "host /kv fallback")
+        if self._dist:
+            # No host path for a group (its pages live in several
+            # processes): prefill locally.
+            pi.error = "no usable sharded transfer route"
+            with self._cond:
+                self._import_ready.append(pi)
+                self._cond.notify()
+            return
         try:
             scheme = ktp.get("remote_scheme") or "http"
             if scheme not in ("http", "https"):
@@ -1375,21 +1660,46 @@ class TorchEngine:
         (the caller falls back to local prefill)."""
         req, headers = pi.req, pi.headers or {}
         ktp = req.kv_transfer_params or {}
-        k, v = pi.kv
-        seq_len = int(headers["x-kv-seq-len"])
-        real_nb = int(headers.get("x-kv-real-blocks") or k.shape[1])
-        self._validate_kv_geometry(tuple(k.shape), seq_len, real_nb, len(blocks))
+        if pi.dist_pull or pi.shards is not None:
+            shape = tuple(int(d) for d in ktp["kv_shape"])
+            seq_len = int(ktp["remote_seq_len"])
+            real_nb = int(ktp.get("remote_num_blocks") or shape[1])
+        else:
+            shape = tuple(pi.kv[0].shape)
+            seq_len = int(headers["x-kv-seq-len"])
+            real_nb = int(headers.get("x-kv-real-blocks") or shape[1])
+        self._validate_kv_geometry(shape, seq_len, real_nb, len(blocks))
         first = int(ktp["remote_first_token"]
                     if ktp.get("remote_first_token") is not None
                     else headers["x-kv-first-token"])
-        tp, pp = self.cfg.tp_size, self.cfg.pp_size
-        for (kp, vp), ks, vs in zip(self._page_pairs(),
-                                    par.split_pages(k[:, :real_nb], tp, pp),
-                                    par.split_pages(v[:, :real_nb], tp, pp)):
-            ids = torch.tensor(blocks[:real_nb], dtype=torch.long, device=kp.device)
-            kp[:, ids] = ks.to(kp.device, self.dtype)
-            vp[:, ids] = vs.to(vp.device, self.dtype)
-        pi.kv = None
+        ids = np.asarray(blocks[:real_nb], np.int32)
+        if pi.dist_pull:
+            # Every process pulls its own shards from its counterpart.
+            wire, addrs = self._wire_route(ktp)
+            t0 = time.monotonic()
+            self._device_call(("pull_kv_import",), dict(
+                blocks=ids, addresses=addrs, wire=wire,
+                tuid=int(ktp["transfer_uuid"]), shape=list(shape)))
+            self._note_kv_import(req.request_id, t0, _kv_param_bytes(ktp),
+                                 "device" if wire == "device" else "shard-wire")
+            self._release_remote_export(ktp)
+        elif pi.shards is not None:
+            # The pull's time: its open on the fetch thread, then the copy.
+            t0 = time.monotonic() - pi.open_s
+            try:
+                self._copy_shards(pi.shards, ids, shape)
+            finally:
+                pi.shards, done, pi.done = None, pi.done, None
+                done()
+            self._note_kv_import(req.request_id, t0, _kv_param_bytes(ktp), "device")
+            self._release_remote_export(ktp)
+        else:
+            k, v = pi.kv
+            pi.kv = None
+            self._device_call(("import",), dict(
+                blocks=ids, k=np.asarray(kv_wire.tensor_bytes(k[:, :real_nb])),
+                v=np.asarray(kv_wire.tensor_bytes(v[:, :real_nb])),
+                dtype=kv_wire.dtype_name(k.dtype), shape=[shape[0], real_nb, *shape[2:]]))
 
         slot = _Slot(req=req, out=pi.out, loop=pi.loop, blocks=blocks,
                      position=seq_len, generated=[first], last_token=first,
@@ -1430,14 +1740,28 @@ class TorchEngine:
             b *= 2
         return min(b, self.cfg.max_batch)
 
+    def _sample_args(self, reqs) -> dict[str, np.ndarray]:
+        """Host-side sampling knobs of a batch, as op arguments (the
+        generator's state is never shipped: every sampling process advances
+        its own, seeded alike, by the same ops)."""
+        return dict(zip(("temps", "top_k", "top_p"), self._sample_np(reqs)))
+
     def _decode_chunk(self, tokens: np.ndarray, positions: np.ndarray,
                       tables: np.ndarray, reqs) -> np.ndarray:
-        """``decode_chunk`` decode+sample steps on the device, each step's
-        sampled tokens feeding the next; ONE readback of the [K, B] tokens.
-        A pp engine takes the lane-group interleave when B divides by pp,
-        else the broadcast ring (``llama.decode_step`` through the stages)."""
+        """``decode_chunk`` decode+sample steps on the device (the ``decode``
+        op)."""
+        return self._device_call(("decode",), dict(
+            tokens=tokens, positions=positions, tables=tables,
+            **self._sample_args(reqs)))
+
+    def _op_decode(self, tokens, positions, tables, temps, top_k, top_p):
+        """``decode_chunk`` decode+sample steps, each step's sampled tokens
+        feeding the next; ONE readback of the [K, B] tokens (None on a
+        process without stage 0). A pp engine takes the lane-group
+        interleave when B divides by pp, else the broadcast ring
+        (``llama.decode_step`` through the stages)."""
         K, B, P = self.cfg.decode_chunk, len(tokens), self.cfg.pp_size
-        sample_np = self._sample_np(reqs)
+        sample_np = (temps, top_k, top_p)
         tok = self._to_dev(tokens)
         pos = self._to_dev(positions)
         tab = self._to_dev(tables)
@@ -1455,13 +1779,14 @@ class TorchEngine:
             for k in range(K):
                 logits, _, _ = llama.decode_step(self.params, self.mcfg, tok, pos,
                                                  self.k_pages, self.v_pages, tab)
-                tok = sample_tokens(logits, self._sample_gen, knobs)
-                out[k] = tok
+                if logits is not None:
+                    tok = sample_tokens(logits, self._sample_gen, knobs)
+                    out[k] = tok
                 pos = pos + 1
             schedule = "ring"
         self.decode_steps += K
         self.decode_steps_by_schedule[schedule] += K
-        return out.cpu().numpy()
+        return None if out is None or not self._holds_head() else out.cpu().numpy()
 
     def _decode_once(self):
         active = [i for i, s in enumerate(self.slots)
@@ -1561,19 +1886,21 @@ class TorchEngine:
         while bucket < len(s.blocks):
             bucket *= 2
         bucket = min(bucket, self.max_blocks_per_seq)
-        padded = list(s.blocks) + [0] * (bucket - len(s.blocks))
+        padded = np.asarray(list(s.blocks) + [0] * (bucket - len(s.blocks)), np.int32)
         rid = s.req.request_id
-        rec = self._stage_kv(
-            rid, padded,
+        tuid = uuid.uuid4().int & ((1 << 63) - 1)
+        # In a group every process gathers and registers its own shards.
+        rec = self._device_call(("stage_kv",), dict(
+            request_id=rid, idx=padded, tuid=tuid,
             stream=bool((s.req.kv_transfer_params or {}).get("stream_chunks")),
             meta={"num_blocks": len(s.blocks),  # real (un-padded) count
                   "seq_len": s.position,        # prompt tokens in cache
-                  "first_token": first_token})
+                  "first_token": first_token}))
         if "chunks_staged" in rec:
             # After the metadata: a puller that sees complete=1 always finds
             # seq_len and first_token.
             self._finalize_chunk_export(rec, len(s.blocks))
-        return {
+        kv = {
             "remote_engine_id": self.engine_id,
             "remote_request_id": rid,
             "remote_num_blocks": len(s.blocks),
@@ -1584,13 +1911,298 @@ class TorchEngine:
             # A TLS exporter's /kv is https: the importer dials that scheme.
             "remote_scheme": "https" if self.cfg.secure_serving else "http",
         }
+        if rec.get("tuid") is not None:
+            m = self.mcfg
+            kv |= {"transfer_uuid": tuid,
+                   "kv_shape": [m.n_layers, len(padded), m.kv_block_size,
+                                m.n_kv_heads, m.head_dim],
+                   "kv_dtype": kv_wire.dtype_name(self.dtype),
+                   "kv_mesh": self._mesh_descriptor()}
+            for wire, key, srv in (("device", "device_wire_address", self.kv_device_wire),
+                                   ("host", "shard_wire_address", self.kv_shard_wire)):
+                if srv is not None:
+                    kv[f"kv_wire_{wire}"] = self._wire_addresses(key, srv)
+        return kv
+
+    def _wire_addresses(self, key: str, srv) -> list[str]:
+        """A wire's address in each process of the group, in process order
+        (one for a single process; "" where a follower named none)."""
+        addrs = [srv.address()]
+        if self._instr_channel is not None:
+            for pid in range(1, self.cfg.dist_num_processes):
+                addrs.append((self._instr_channel.hellos.get(pid) or {}).get(key) or "")
+        return addrs
+
+    def _release_remote_export(self, ktp: dict[str, Any]) -> None:
+        """Best effort: tell the exporter its staged export was consumed
+        over the device wire, so it drops it (its TTL sweep otherwise)."""
+        path = ("/kv/" + urllib.parse.quote(str(ktp["remote_request_id"]), safe="")
+                + "?consumed=device")
+        scheme = ktp.get("remote_scheme") or "http"
+        try:
+            with kv_wire.KvClient(ktp["remote_host"], ktp["remote_port"], timeout=5.0,
+                                  context=self.client_tls() if scheme == "https"
+                                  else None) as c:
+                c.delete(path)
+        except Exception:
+            pass
+
+    # ---- device ops (replayed by a group's followers) -------------------
+    # Every device call of the engine loop goes through _device_call, so a
+    # follower (engine/multihost.py) replays the same sequence. Op arguments
+    # are numpy arrays, ints and strings, never tensors.
+
+    def _device_call(self, op: tuple, args: dict):
+        if self._instr_channel is not None and self._instr_channel.leader:
+            self._instr_channel.broadcast(op, args)
+        return self._exec_op(op, args)
+
+    def _exec_op(self, op: tuple, args: dict):
+        kind = op[0]
+        if kind == "decode":
+            return self._op_decode(**args)
+        if kind in ("prefill", "mm_prefill"):
+            return self._op_prefill(**args)
+        if kind == "prefix_prefill":
+            return self._op_prefix_prefill(**args)
+        if kind == "import":
+            return self._op_import(**args)
+        if kind == "stage_kv":
+            return self._op_stage_kv(**args)
+        if kind == "release_kv_export":
+            return self._release_export_local(args["request_id"])
+        if kind == "pull_kv_import":
+            return self._op_pull_kv_import(**args)
+        if kind == "embed":
+            return self._op_embed(**args)
+        if kind == "launches":
+            return self._op_launches(**args)
+        if kind == "logits":
+            return self._op_logits(**args)
+        if kind == "kernel_check":
+            return self._op_kernel_check(**args)
+        if kind == "page_digest":
+            return self._op_page_digest(**args)
+        raise ValueError(f"unknown device op {op!r}")
+
+    def _holds_head(self) -> bool:
+        """This process holds stage 0: the embedding, the head and the
+        sampler (every process without pp)."""
+        return self.comm is None or self.layout.pp == 1 or self.comm.rank == 0
+
+    def _sample(self, logits: torch.Tensor | None, temps, top_k, top_p):
+        if logits is None:
+            return None
+        knobs = SamplingKnobs.from_numpy(temps, top_k, top_p, self.device)
+        return sample_tokens(logits, self._sample_gen, knobs)
+
+    def _op_prefill(self, tokens, lens, rows, temps, top_k, top_p,
+                    mm_embeds=None, mm_positions=None):
+        mm = {}
+        if mm_embeds is not None:
+            mm = {"mm_embeds": self._to_dev(mm_embeds),
+                  "mm_positions": self._to_dev(mm_positions)}
+        lens_dev = self._to_dev(lens)
+        hidden, (k_new, v_new) = llama.forward(self.params, self.mcfg,
+                                               self._to_dev(tokens), want_kv=True,
+                                               want_hidden=True, **mm)
+        llama.write_prefill_kv(self.k_pages, self.v_pages, k_new, v_new,
+                               self._to_dev(rows), lens_dev)
+        if hidden is None:
+            return None
+        # Only each row's last real position needs the LM head (the hidden
+        # state is the forward's f32 copy of a bf16/f32 value: the cast back
+        # is exact).
+        last = hidden[torch.arange(len(lens), device=self.device), (lens_dev - 1).long()]
+        logits = llama.lm_logits(self.params, last.to(self.dtype))
+        return self._sample(logits, temps, top_k, top_p)
+
+    def _op_prefix_prefill(self, tokens, suffix_len, prefix_len, row, prior,
+                           temps, top_k, top_p):
+        logits, _, _ = llama.prefill_with_prefix(
+            self.params, self.mcfg, self._to_dev(tokens), self._to_dev(suffix_len),
+            self._to_dev(prefix_len), self.k_pages, self.v_pages, self._to_dev(row),
+            self._to_dev(prior))
+        return self._sample(logits, temps, top_k, top_p)
+
+    def _op_embed(self, ids):
+        hidden, _ = llama.forward(self.params, self.mcfg,
+                                  self._to_dev(np.asarray([ids], np.int32)),
+                                  want_hidden=True)
+        return None if hidden is None else hidden[0].mean(dim=0).cpu().numpy()
+
+    def _op_import(self, blocks, k, v, dtype, shape):
+        """Host-pulled KV (K and V bytes of ``shape``, the single-device
+        layout) into ``blocks``, split into this engine's page shards."""
+        dt = kv_wire.dtype_from_name(dtype)
+        kt = torch.from_numpy(k).view(dt).reshape(shape)
+        vt = torch.from_numpy(v).view(dt).reshape(shape)
+        tp, pp = self.cfg.tp_size, self.cfg.pp_size
+        for (kp, vp), ks, vs in zip(self._page_pairs(), par.split_pages(kt, tp, pp),
+                                    par.split_pages(vt, tp, pp)):
+            ids = torch.from_numpy(np.ascontiguousarray(blocks)).long().to(kp.device)
+            kp[:, ids] = ks.to(kp.device, self.dtype)
+            vp[:, ids] = vs.to(vp.device, self.dtype)
+
+    def _copy_shards(self, shards: list[torch.Tensor], blocks: np.ndarray,
+                     shape: tuple[int, ...]) -> None:
+        """An export's page shards (this process's, canonical order: every K
+        shard, then every V shard) into ``blocks`` of the pages, and wait
+        for the copies (the shards may be another process's memory)."""
+        pairs = self._page_pairs()
+        if len(shards) != 2 * len(pairs):
+            raise ValueError(f"{len(shards)} shards for {len(pairs)} page shards")
+        L, nb, block, Hkv, Dh = shape
+        lay = self.layout
+        want = (L // (lay.pp if lay else 1), nb, block, Hkv // (lay.tp if lay else 1), Dh)
+        for t in shards:
+            if tuple(t.shape) != want:
+                raise ValueError(f"shard shape {tuple(t.shape)} != {want}")
+        n = len(blocks)
+        for (kp, vp), ks, vs in zip(pairs, shards[:len(pairs)], shards[len(pairs):]):
+            ids = torch.from_numpy(np.ascontiguousarray(blocks)).long().to(kp.device)
+            kp[:, ids] = ks[:, :n].to(kp.device, self.dtype)
+            vp[:, ids] = vs[:, :n].to(vp.device, self.dtype)
+        for dev in {kp.device for kp, _ in pairs} | {t.device for t in shards}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def _op_pull_kv_import(self, blocks, addresses, wire, tuid, shape):
+        """Coordinated pull (every process of an importer group): this
+        process's shards from its counterpart in the exporter group, over
+        the host shard wire or the device wire, into ``blocks``. A failure
+        raises: in a group that is a restart fault (the other processes are
+        inside the op already)."""
+        addr = addresses[self.comm.rank if self.comm is not None else 0]
+        if wire == "host":
+            shards, done = shard_wire.pull_shards(addr, tuid), (lambda: None)
+        else:
+            shards, done = kv_transfer.pull(addr, tuid)
+        try:
+            self._copy_shards(shards, blocks, tuple(shape))
+        finally:
+            done()
+        if self.comm is not None:
+            # Every process has copied its shards before the leader releases
+            # the export (which drops them on every exporter process).
+            self.comm.barrier(self.device)
+
+    def _op_logits(self, ids):
+        logits, _ = llama.forward(self.params, self.mcfg,
+                                  self._to_dev(np.asarray([ids], np.int32)))
+        return None if logits is None else logits[0, -1].float().cpu().numpy()
+
+    def _op_kernel_check(self, atol, rtol, moe_rel, seed):
+        from ..ops import attention, moe
+
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        block = self.mcfg.kv_block_size
+        group = self.mcfg.n_heads // self.mcfg.n_kv_heads
+        results: dict[str, tuple[float, bool]] = {}
+
+        def note(name, out, ref, ok):
+            err = float((out.float() - ref.float()).abs().max())
+            prev = results.get(name, (0.0, True))
+            results[name] = (max(prev[0], err), prev[1] and ok
+                             and bool(torch.isfinite(out.float()).all()))
+
+        B, W = 4, -(-self.cfg.max_model_len // block)
+        for kp, _ in self._page_pairs():
+            Hkv, D = kp.shape[3], kp.shape[4]
+
+            def r(*shape):
+                return torch.randn(*shape, generator=gen, device=self.device).to(
+                    kp.device, kp.dtype)
+
+            tables = (1 + torch.randperm(B * W, generator=gen, device=self.device)).to(
+                kp.device, torch.int32).reshape(B, W)
+            lens = torch.cat([torch.tensor([W * block], device=self.device),
+                              torch.randint(1, W * block, (B - 1,), generator=gen,
+                                            device=self.device)]).to(kp.device, torch.int32)
+            args = (r(B, Hkv * group, D), r(B * W + 1, block, Hkv, D),
+                    r(B * W + 1, block, Hkv, D), tables, lens, r(B, Hkv, D), r(B, Hkv, D))
+            out = paged_attention.paged_decode_attention_cuda(*args)
+            ref = attention.paged_decode_attention(*args[:5], cur_k=args[5], cur_v=args[6])
+            note(paged_attention.KERNEL, out, ref,
+                 bool(((out.float() - ref.float()).abs()
+                       <= atol + rtol * ref.float().abs()).all()))
+        if self.mcfg.moe_impl == "grouped":
+            shard = (self.params if self.layout is None
+                     else self.params.shards[next(r for r, _, _ in self.layout.ranks())])
+            lp = {k: v[0] for k, v in shard["layers"].items()}
+            x = torch.randn(8, self.mcfg.d_model, generator=gen,
+                            device=self.device).to(lp["w1"].dtype)
+            g = moe.group_rows(lp, x, self.mcfg.n_experts, self.mcfg.experts_per_token)
+            kargs = (g.x_pad, g.tile_expert, lp["w1"], lp["w3"], lp["w2"], g.tm)
+            out = grouped_moe.grouped_ffn_cuda(*kargs, g.rows_used)
+            ref = moe.grouped_ffn_reference(*kargs).float()
+            rms = float(ref[ref.abs().amax(-1) > 0].pow(2).mean().sqrt())
+            note(grouped_moe.KERNEL, out, ref,
+                 bool(((out.float() - ref).abs() <= moe_rel * (ref.abs() + rms)).all()))
+        if self.comm is None:
+            return [results]
+        names = sorted(results)
+        mine = torch.tensor([[v for n in names for v in (results[n][0], float(results[n][1]))]],
+                            dtype=torch.float64, device=self.device)
+        every = self.comm.all_gather_last(mine).reshape(self.comm.size, -1).cpu()
+        return [{n: (float(row[2 * i]), bool(row[2 * i + 1])) for i, n in enumerate(names)}
+                for row in every]
+
+    def _op_page_digest(self, blocks, n_tokens):
+        pairs = self._page_pairs()
+        ids = torch.from_numpy(np.ascontiguousarray(blocks)).long()
+        mine = [kv_shards.shard_digest(p[:, ids.to(p.device)], n_tokens)
+                for p in [k for k, _ in pairs] + [v for _, v in pairs]]
+        if self.comm is None:
+            return [mine]
+        raw = torch.tensor([list(bytes.fromhex("".join(mine)))], dtype=torch.uint8,
+                           device=self.device)
+        every = self.comm.all_gather_last(raw).reshape(self.comm.size, -1).cpu()
+        return [[bytes(row[i:i + 32].tolist()).hex() for i in range(0, row.numel(), 32)]
+                for row in every]
+
+    def _op_launches(self, reset: bool):
+        """Every process's kernel launch counts, gathered over the group."""
+        from .. import ops
+
+        counts = ops.kernel_launches()
+        if reset:
+            ops.reset_kernel_launches()
+        if self.comm is None:
+            return [counts]
+        names = sorted(counts)
+        mine = torch.tensor([[counts[n] for n in names]], dtype=torch.int64,
+                            device=self.device)
+        every = self.comm.all_gather_last(mine).reshape(-1, len(names)).cpu()
+        return [dict(zip(names, (int(x) for x in row))) for row in every]
 
 
 def _embed(params) -> torch.Tensor:
-    """The (first rank's) embedding table: the params' device and dtype."""
+    """A weight of this process's first rank (the embedding table where it
+    holds one): the params' device and dtype."""
     if isinstance(params, par.ShardedParams):
-        return params.shards[0]["embed"]
+        shard = params.shards[next(r for r, _, _ in params.layout.ranks())]
+        return shard.get("embed", next(iter(shard["layers"].values())))
     return params["embed"]
+
+
+def _tcp_preflight(address: str, timeout: float = 2.0) -> None:
+    """Fail fast on an unreachable wire, so that the fallback engages (and a
+    group's leader never broadcasts a pull that would wedge its followers)."""
+    import socket
+
+    host, _, port = address.rpartition(":")
+    with socket.create_connection((host, int(port)), timeout=timeout):
+        pass
+
+
+def _kv_param_bytes(ktp: dict[str, Any]) -> int:
+    """K+V bytes of a wire export, from its advertised geometry."""
+    n = 1
+    for d in ktp.get("kv_shape") or []:
+        n *= int(d)
+    dtype = kv_wire.dtype_from_name(str(ktp.get("kv_dtype") or "bfloat16"))
+    return 2 * n * torch.empty((), dtype=dtype).element_size()
 
 
 _DUMMY_REQ = EngineRequest(request_id="__pad__", prompt_token_ids=[0])

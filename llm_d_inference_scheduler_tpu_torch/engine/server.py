@@ -1106,6 +1106,7 @@ class EngineServer:
     async def health(self, conn: _Conn, raw: bytes) -> None:
         warming = self.engine.warming or time.monotonic() < self._ready_at_mono
         status = ("failed" if self.engine.failure is not None
+                  else "degraded" if getattr(self.engine, "dist_degraded", False)
                   else "draining" if self.draining
                   else "warming" if warming else "ok")
         await conn.send_json({"status": status,
@@ -1245,6 +1246,9 @@ class EngineServer:
                             "x-kv-dtype": kv_wire.dtype_name(k.dtype)})
             await conn.send(200, (kv_wire.tensor_bytes(k), kv_wire.tensor_bytes(v)),
                             octets, headers)
+        elif "tuid" in rec and "k" not in rec:
+            raise HTTPError(404, "a multi-process engine serves its KV over "
+                                 "its shard wires only")
         elif "k" not in rec:
             raise HTTPError(501, "sim engine holds no real KV")
         else:
@@ -1260,10 +1264,10 @@ class EngineServer:
                             })
 
     async def kv_release(self, conn: _Conn, raw: bytes) -> None:
-        """Drop an export once pulled (``?consumed=`` is accepted as the JAX
-        server's; with no transfer server it changes nothing here)."""
+        """Drop an export once pulled (``?consumed=device`` after a device
+        wire pull, as the JAX server's)."""
         rid = urllib.parse.unquote(conn.path[len("/kv/"):])
-        self.engine.release_kv_export(rid)
+        self.engine.release_kv_export(rid, consumed=conn.query.get("consumed") or "host")
         await conn.send_json({"released": rid})
 
 
@@ -1387,6 +1391,17 @@ def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
     p.add_argument("--client-ca-cert", default="",
                    help="CA bundle for the outbound legs (implies "
                         "verification against this bundle)")
+    p.add_argument("--dist-coordinator", default="",
+                   help="host:port of the engine group's rendezvous store "
+                        "(process 0 hosts it): enables multi-process serving "
+                        "(engine/multihost.py), one engine over every "
+                        "process's ranks")
+    p.add_argument("--dist-num-processes", type=int, default=1)
+    p.add_argument("--dist-process-id", type=int, default=0)
+    p.add_argument("--dist-instr-port", type=int, default=8790)
+    p.add_argument("--dist-instr-host", default="",
+                   help="instruction-channel address: leader bind / follower "
+                        "dial; defaults to --host")
     args = p.parse_args(argv)
     if args.backend not in BACKENDS:
         p.error(f"--backend {args.backend}: the PyTorch port has "
@@ -1426,13 +1441,31 @@ def parse_config(argv: list[str] | None = None) -> tuple[EngineConfig, float]:
                        chaos=args.chaos, chaos_seed=args.chaos_seed,
                        client_insecure_skip_verify=not (
                            args.client_verify or args.client_ca_cert),
-                       client_ca_cert_path=args.client_ca_cert)
+                       client_ca_cert_path=args.client_ca_cert,
+                       dist_coordinator=args.dist_coordinator,
+                       dist_num_processes=args.dist_num_processes,
+                       dist_process_id=args.dist_process_id,
+                       dist_instr_port=args.dist_instr_port,
+                       dist_instr_host=args.dist_instr_host)
     return cfg, args.drain_timeout
 
 
 def main(argv: list[str] | None = None):
     cfg, drain_timeout_s = parse_config(argv)
     logging.basicConfig(level=logging.INFO)
+    if cfg.dist and cfg.dist_process_id > 0:
+        # A follower: no HTTP surface. Build the engine (its ranks' weights,
+        # the group, the instruction channel) and replay the leader's device
+        # ops until it stops; LeaderLost or a failed op exits nonzero.
+        from .core import TorchEngine
+        from .multihost import run_follower
+
+        engine = TorchEngine(cfg)
+        try:
+            run_follower(engine)
+        finally:
+            engine.close()
+        return
     asyncio.run(run_server(cfg, drain_timeout_s=drain_timeout_s))
 
 

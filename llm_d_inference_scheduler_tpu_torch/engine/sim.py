@@ -153,7 +153,7 @@ class SimEngine:
     def get_kv_export(self, request_id: str) -> dict[str, Any] | None:
         return self.kv_exports.get(request_id)
 
-    def release_kv_export(self, request_id: str) -> None:
+    def release_kv_export(self, request_id: str, *, consumed: str = "host") -> None:
         rec = self.kv_exports.pop(request_id, None)
         if rec:
             self._blocks_used -= rec["n_blocks"]

@@ -156,19 +156,19 @@ def convert_state_dict(state_dict: dict[str, torch.Tensor], cfg: ModelConfig,
         par.validate_degrees(cfg, layout.tp, layout.ep, layout.pp)
     else:
         layout = par.ServeLayout((resolve_device(device),))
-    device = layout.devices[0]
+    device = layout.first_device
     E = cfg.n_experts
     shapes = param_shapes(cfg)
     splits = param_splits(cfg)
-    ranks = list(layout.ranks())
+    ranks = list(layout.ranks())  # this process's
     # Each rank's share of each tensor (its stage's layers, split over
     # tp/ep; the embedding, final norm and head on stage 0 only).
     outs: list[dict[str, torch.Tensor]] = [{} for _ in ranks]
     for name, shape in shapes.items():
         views = par.rank_views(name, torch.empty(shape, device="meta"), cfg, layout)
-        for (r, _, _), out, v in zip(ranks, outs, views):
-            if v is not None:
-                out[name] = torch.empty(v.shape, dtype=dt, device=layout.devices[r])
+        for (r, _, _), out in zip(ranks, outs):
+            if views[r] is not None:
+                out[name] = torch.empty(views[r].shape, dtype=dt, device=layout.devices[r])
 
     def get(key):
         if key not in state_dict:
@@ -224,8 +224,10 @@ def convert_state_dict(state_dict: dict[str, torch.Tensor], cfg: ModelConfig,
             if "lm_head" in out:
                 out["lm_head"].copy_(out["embed"].t())
     if sharded:
-        return par.from_rank_lists({name: [out.get(name) for out in outs]
-                                    for name in shapes}, layout)
+        by_rank = {r: out for (r, _, _), out in zip(ranks, outs)}
+        return par.from_rank_lists(
+            {name: [by_rank.get(r, {}).get(name) for r in range(len(layout.devices))]
+             for name in shapes}, layout)
     return nested_params(outs[0])
 
 

@@ -26,6 +26,13 @@
   is a masked lookup per vocab shard and a sum, the logits are gathered,
   both on stage 0. One rank runs the same code with no sum, no gather and
   no hop: single-device serving is that case.
+- Multi-process (``engine/multihost.py``): a process holds some of the
+  ranks and runs only those. Without pp its tp ranks' partial sums and
+  vocab slices take a second leg over the group (``par.reduce_sum``,
+  ``par.gather_last``); under pp it runs only the stages it holds, in turn
+  order, and the activation hops to the next stage's process by a send and
+  a receive (``_Model.hop``). Functions return the head's outputs (logits,
+  hidden states) on the processes that hold stage 0 and None elsewhere.
 """
 
 from __future__ import annotations
@@ -56,11 +63,13 @@ def init_params(cfg: ModelConfig, device: str | torch.device = "cuda",
     ~32 GB for llama3-8b). Normal(0, 1) * fan_in**-0.5, as the JAX package.
     MoE configs get expert-stacked FFN weights and a router. With ``layout``
     the same full weights are drawn one tensor at a time on the layout's
-    first device and split into its shards (``ShardedParams``): the
-    counterpart of the JAX ``init_sharded_params`` and ``init_pp_params``."""
+    first (local) device and split into its shards (``ShardedParams``): the
+    counterpart of the JAX ``init_sharded_params`` and ``init_pp_params``.
+    Every process of a group draws the same full tensors from the same seed
+    and keeps its own ranks' shards."""
     if layout is not None:
         par.validate_degrees(cfg, layout.tp, layout.ep, layout.pp)
-        device = layout.devices[0]
+        device = layout.first_device
     device = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     if generator is None:
@@ -204,13 +213,23 @@ def _qkv(cfg: ModelConfig, lp: Params, x: torch.Tensor, cos: torch.Tensor,
 class _Stage:
     """One pipeline stage's ranks (all of them without stages) with
     per-layer views, and the sharded layer's two collective steps; ``x``
-    (the residual stream) lives on the stage's first rank's device."""
+    (the residual stream) lives on the stage's first local rank's device.
+    ``held``: this process holds ranks of the stage; ``local_tp``: the tp
+    ranks whose attention and pages it holds."""
 
     def __init__(self, layout: par.ServeLayout, shards: list[Params]):
         self.layout, self.shards = layout, shards
         self.tp, self.ep = layout.tp, layout.ep
-        self.dev = layout.devices[0]
-        self.layers = list(zip(*(layer_params(p) for p in shards)))  # [L/pp][rank]
+        self.comm = layout.comm  # the stage spans processes (no pp)
+        local = [r for r, _, _ in layout.ranks()]
+        self.held = bool(local)
+        self.dev = layout.first_device if self.held else None
+        self.first = local[0] if local else None
+        self.local_tp = [t for t in range(self.tp) if layout.tp_device(t) is not None]
+        per = {r: layer_params(shards[r]) for r in local}
+        n = len(per[local[0]]) if local else 0
+        self.layers = [[per[r][i] if r in per else None for r in range(len(shards))]
+                       for i in range(n)]  # [L/pp][rank]
 
     def tp_shard(self, t: int) -> Params:
         return self.shards[t * self.ep]
@@ -220,16 +239,16 @@ class _Stage:
         attention output over its heads; one sum after ``wo``, one after the
         FFN (``w2``)."""
         parts = []
-        for t in range(self.tp):
+        for t in self.local_tp:
             lp = lps[t * self.ep]
             xt = x.to(self.layout.tp_device(t))
             attn = attend(t, lp, xt)
             parts.append(attn.reshape(*xt.shape[:-1], -1) @ lp["wo"])
-        x = x + par.reduce_sum(parts, self.dev)
-        h = rms_norm(x, lps[0]["ln_mlp"], cfg.norm_eps)
+        x = x + par.reduce_sum(parts, self.dev, self.comm)
+        h = rms_norm(x, lps[self.first]["ln_mlp"], cfg.norm_eps)
         return x + par.reduce_sum(
             [_ffn(cfg, lps[r], h.to(self.layout.devices[r]), e, self.ep)
-             for r, _, e in self.layout.ranks()], self.dev)
+             for r, _, e in self.layout.ranks()], self.dev, self.comm)
 
 
 class _Model:
@@ -249,30 +268,60 @@ class _Model:
                        for s in range(self.pp)]
         self.head = self.stages[0]
         self.dev = self.head.dev
+        # The residual stream's dtype (the weights'), for a hop's receiver.
+        self.dtype = next(iter(shards[next(r for r, _, _ in self.layout.ranks())]
+                               ["layers"].values())).dtype
+        self.comm = self.layout.comm if self.pp > 1 else None
+        self._sends: list = []
 
-    def stage_pages(self, pages, s: int) -> list[torch.Tensor]:
-        """Stage ``s``'s page tensors, one per tp rank."""
+    def stage_pages(self, pages, s: int) -> list[torch.Tensor | None]:
+        """Stage ``s``'s page tensors, one per tp rank (None: another
+        process's)."""
         return _page_list(pages)[s * self.tp:(s + 1) * self.tp]
+
+    def hop(self, x: torch.Tensor | None, src: int, dst: int, shape) -> torch.Tensor | None:
+        """The activation ``x`` (of ``shape``) of stage ``src`` on stage
+        ``dst``'s device, the JAX ``ppermute``: a copy within a process,
+        else a send from ``src``'s process and a receive on ``dst``'s.
+        None on a process that does not hold ``dst``. Sends are posted, not
+        awaited (``flush``), so a schedule in which every process sends
+        before it receives cannot deadlock."""
+        st = self.stages[dst]
+        a, b = self.layout.stage_proc(src), self.layout.stage_proc(dst)
+        if self.comm is None or a == b:
+            return None if x is None or not st.held else x.to(st.dev)
+        if self.comm.rank == a:
+            self._sends.append(self.comm.send(x, b))
+        elif self.comm.rank == b:
+            return self.comm.recv(shape, self.dtype, st.dev, a)
+        return None
+
+    def flush(self) -> None:
+        """Wait for every posted hop send."""
+        for w in self._sends:
+            w.wait()
+        self._sends = []
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token embeddings: a masked lookup in each vocab shard, summed
         (the other shards add exact zeros)."""
         st = self.head
         if self.tp == 1:
-            return st.shards[0]["embed"][tokens.long()]
+            return st.shards[st.first]["embed"][tokens.long()]
         parts = []
-        for t in range(self.tp):
+        for t in st.local_tp:
             emb = st.tp_shard(t)["embed"]
             n = emb.shape[0]
             ids = tokens.long().to(emb.device) - t * n
             ok = (ids >= 0) & (ids < n)
             rows = emb[ids.clamp(0, n - 1)]
             parts.append(torch.where(ok[..., None], rows, torch.zeros_like(rows)))
-        return par.reduce_sum(parts, self.dev)
+        return par.reduce_sum(parts, self.dev, st.comm)
 
     def final_norm(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         """The final RMSNorm, on stage 0's device (where the ring wraps)."""
-        return rms_norm(x.to(self.dev), self.head.shards[0]["final_norm"], cfg.norm_eps)
+        return rms_norm(x.to(self.dev), self.head.shards[self.head.first]["final_norm"],
+                        cfg.norm_eps)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """f32 logits of final-norm hidden states, gathered over the vocab
@@ -280,7 +329,7 @@ class _Model:
         st = self.head
         return par.gather_last(
             [(x.to(st.layout.tp_device(t)) @ st.tp_shard(t)["lm_head"]).float()
-             for t in range(self.tp)], self.dev)
+             for t in st.local_tp], self.dev, st.comm)
 
 
 def _page_list(pages) -> list[torch.Tensor]:
@@ -289,7 +338,7 @@ def _page_list(pages) -> list[torch.Tensor]:
 
 def lm_logits(params, x: torch.Tensor) -> torch.Tensor:
     """f32 logits of final-norm hidden states ``x`` (in the params' dtype),
-    on the first rank's device."""
+    on the first rank's device (a process of stage 0)."""
     return _Model(params).logits(x)
 
 
@@ -309,7 +358,7 @@ def forward(
     the final-norm hidden states [B, S, D] as f32 with ``want_hidden`` —,
     (K, V) each [L, B, S, Hkv, Dh] if ``want_kv``; with ``ShardedParams``
     K and V are lists over the (stage, tp) ranks of [L/pp, B, S, Hkv/tp,
-    Dh], index ``s * tp + t``).
+    Dh], index ``s * tp + t``, None where another process holds the rank).
 
     Multimodal prefill (E/P/D): ``mm_embeds`` replace the token embeddings
     at ``mm_positions`` (encoder outputs spliced in at placeholder tokens),
@@ -323,18 +372,23 @@ def forward(
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    x = m.embed(tokens)
-    if mm_embeds is not None:
+    x = m.embed(tokens) if m.head.held else None
+    if mm_embeds is not None and x is not None:
         x = _splice(x, mm_embeds, mm_positions)
     n = m.pp * m.tp
     ks: list[list[torch.Tensor]] = [[] for _ in range(n)]
     vs: list[list[torch.Tensor]] = [[] for _ in range(n)]
+    shape = (B, S, cfg.d_model)
     for s, st in enumerate(m.stages):
-        per_tp = []
-        for t in range(m.tp):
+        if s > 0:
+            x = m.hop(x, s - 1, s, shape)
+        if not st.held:
+            continue
+        per_tp = {}
+        for t in st.local_tp:
             dev = st.layout.tp_device(t)
-            per_tp.append((cos.to(dev), sin.to(dev), positions.to(dev),
-                           None if kv_valid is None else kv_valid.to(dev)))
+            per_tp[t] = (cos.to(dev), sin.to(dev), positions.to(dev),
+                         None if kv_valid is None else kv_valid.to(dev))
 
         def attend(t, lp, xt):
             c, s_, pos, valid = per_tp[t]
@@ -348,12 +402,17 @@ def forward(
         x = x.to(st.dev)
         for lps in st.layers:
             x = st.layer(cfg, lps, x, attend)
-    x = m.final_norm(x, cfg)
+    x = m.hop(x, m.pp - 1, 0, shape)
+    m.flush()
     kv = None
     if want_kv:
-        kv = ([torch.stack(k) for k in ks], [torch.stack(v) for v in vs])
+        kv = ([torch.stack(k) if k else None for k in ks],
+              [torch.stack(v) if v else None for v in vs])
         if not isinstance(params, par.ShardedParams):
             kv = (kv[0][0], kv[1][0])
+    if x is None:
+        return None, kv
+    x = m.final_norm(x, cfg)
     if want_hidden:
         return x.float(), kv
     return m.logits(x), kv
@@ -395,7 +454,7 @@ def decode_slab(cfg: ModelConfig, st: _Stage, x: torch.Tensor, kps, vps,
     Each tp rank attends over its own pages (one kernel launch per rank and
     layer)."""
     B = x.shape[0]
-    block = kps[0].shape[2]
+    block = next(k for k in kps if k is not None).shape[2]
     W = block_tables.shape[1]
     positions = positions.to(st.dev, torch.int32)
     block_tables = block_tables.to(st.dev)
@@ -404,11 +463,11 @@ def decode_slab(cfg: ModelConfig, st: _Stage, x: torch.Tensor, kps, vps,
     lane = torch.arange(B, device=st.dev)
     blk_idx = block_tables[lane, (positions // block).clamp(max=W - 1).long()].long()
     slot = (positions % block).long()
-    per_tp = []
-    for t in range(st.tp):
+    per_tp = {}
+    for t in st.local_tp:
         dev = kps[t].device
-        per_tp.append((cos[:, None].to(dev), sin[:, None].to(dev),
-                       block_tables.to(dev), seq_lens.to(dev)))
+        per_tp[t] = (cos[:, None].to(dev), sin[:, None].to(dev),
+                     block_tables.to(dev), seq_lens.to(dev))
 
     x = x.to(st.dev)
     k_cur: list[list[torch.Tensor]] = [[] for _ in range(st.tp)]
@@ -424,7 +483,7 @@ def decode_slab(cfg: ModelConfig, st: _Stage, x: torch.Tensor, kps, vps,
             return attn[:, None]
 
         x = st.layer(cfg, lps, x, attend)
-    for t in range(st.tp):
+    for t in st.local_tp:
         dev = kps[t].device
         bi, si = blk_idx.to(dev), slot.to(dev)
         kps[t][:, bi, si] = torch.stack(k_cur[t]).to(kps[t].dtype)
@@ -448,11 +507,19 @@ def decode_step(
     stages, the broadcast ring of the JAX ``_ring_decode_step``, which runs
     only the stage whose turn it is."""
     m = _Model(params)
-    x = m.embed(tokens)[:, None]                             # [B, 1, D]
+    shape = (tokens.shape[0], 1, cfg.d_model)
+    x = m.embed(tokens)[:, None] if m.head.held else None    # [B, 1, D]
     for s, st in enumerate(m.stages):
-        x = decode_slab(cfg, st, x, m.stage_pages(k_pages, s),
-                        m.stage_pages(v_pages, s), block_tables, positions,
-                        paged_attention)
+        if s > 0:
+            x = m.hop(x, s - 1, s, shape)
+        if st.held:
+            x = decode_slab(cfg, st, x, m.stage_pages(k_pages, s),
+                            m.stage_pages(v_pages, s), block_tables, positions,
+                            paged_attention)
+    x = m.hop(x, m.pp - 1, 0, shape)
+    m.flush()
+    if x is None:
+        return None, k_pages, v_pages
     return m.logits(m.final_norm(x[:, 0], cfg)), k_pages, v_pages
 
 
@@ -479,7 +546,7 @@ def prefill_with_prefix(
     kps, vps = _page_list(k_pages), _page_list(v_pages)
     B, S = tokens.shape
     assert B == 1
-    block = kps[0].shape[2]
+    block = next(k for k in kps if k is not None).shape[2]
     if prior_table_row is None:
         prior_table_row = block_table_row
     W = block_table_row.shape[1]
@@ -505,12 +572,17 @@ def prefill_with_prefix(
     blk_for_t = torch.where(valid, table_blk, torch.zeros_like(table_blk)).long()
     slot_for_t = torch.where(valid, tgt % block, torch.zeros_like(tgt)).long()
 
-    x = m.embed(tokens)
+    x = m.embed(tokens) if m.head.held else None
+    shape = (1, S, cfg.d_model)
     for s, st in enumerate(m.stages):
+        if s > 0:
+            x = m.hop(x, s - 1, s, shape)
+        if not st.held:
+            continue
         skp, svp = m.stage_pages(kps, s), m.stage_pages(vps, s)
-        per_tp = [tuple(a.to(kp.device) for a in (cos, sin, positions, kv_positions,
-                                                   kv_valid, prior))
-                  for kp in skp]
+        per_tp = {t: tuple(a.to(skp[t].device) for a in (cos, sin, positions,
+                                                          kv_positions, kv_valid, prior))
+                  for t in st.local_tp}
         k_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
         v_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
         x = x.to(st.dev)
@@ -529,12 +601,16 @@ def prefill_with_prefix(
                                         kv_valid=ok)
 
             x = st.layer(cfg, lps, x, attend)
-        for t in range(m.tp):
+        for t in st.local_tp:
             d = skp[t].device
             bi, si = blk_for_t.to(d), slot_for_t.to(d)
             skp[t][:, bi, si] = torch.stack(k_new[t]).to(skp[t].dtype)
             svp[t][:, bi, si] = torch.stack(v_new[t]).to(svp[t].dtype)
 
+    x = m.hop(x, m.pp - 1, 0, shape)
+    m.flush()
+    if x is None:
+        return None, k_pages, v_pages
     x = m.final_norm(x, cfg)
     last = x[0, (suffix_len[0] - 1).long().to(x.device)][None]
     return m.logits(last), k_pages, v_pages
@@ -555,8 +631,8 @@ def write_prefill_kv(
     t % block; padding tokens (t >= seq_lens[b]) go to the trash block 0."""
     kps, vps = _page_list(k_pages), _page_list(v_pages)
     kns, vns = _page_list(k_new), _page_list(v_new)
-    L, B, S, _, Dh = kns[0].shape
-    block = kps[0].shape[2]
+    L, B, S, _, Dh = next(k for k in kns if k is not None).shape
+    block = next(k for k in kps if k is not None).shape[2]
     W = block_tables.shape[1]
     dev = block_tables.device
     t = torch.arange(S, dtype=torch.int32, device=dev)
@@ -568,6 +644,8 @@ def write_prefill_kv(
     bidx = blk_for_t.reshape(-1).long()
     sidx = slot_for_t.reshape(-1).long()
     for kp, vp, kn, vn in zip(kps, vps, kns, vns):
+        if kp is None:  # another process's rank
+            continue
         Hkv = kn.shape[3]
         bi, si = bidx.to(kp.device), sidx.to(kp.device)
         kp[:, bi, si] = kn.reshape(L, B * S, Hkv, Dh).to(kp.device, kp.dtype)

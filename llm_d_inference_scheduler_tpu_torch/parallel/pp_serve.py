@@ -74,8 +74,11 @@ def interleaved_chunk(
 ) -> torch.Tensor:
     """``n_tokens`` decode steps of every lane by the lane-group interleave
     (the JAX ``_interleaved_chunk_body``); ``sample(logits, g)`` samples
-    group g's lanes. Returns the [K, B] int32 tokens on stage 0's device,
-    the pages written in place."""
+    group g's lanes. Returns the [K, B] int32 tokens on stage 0's device
+    (None on a process without stage 0), the pages written in place. Across
+    processes each group's activation hops stage to stage as in
+    ``llama.decode_step``; every process walks the turns in the same order,
+    so each receive meets a send posted a turn earlier."""
     m = llama._Model(params)
     P, K = m.pp, n_tokens
     B = tokens.shape[0]
@@ -83,8 +86,10 @@ def interleaved_chunk(
         raise ValueError(f"interleaved pp decode needs batch divisible "
                          f"by pp={P}, got {B}")
     Bg = B // P
+    shape = (Bg, 1, cfg.d_model)
+    head = m.head.held
     lanes = [slice(g * Bg, (g + 1) * Bg) for g in range(P)]
-    out = torch.empty((K, B), dtype=torch.int32, device=m.dev)
+    out = torch.empty((K, B), dtype=torch.int32, device=m.dev) if head else None
     cur = [tokens[sl] for sl in lanes]
     # A copy per group: a row slice starts g·B/P·W·4 bytes in, off the
     # 16-byte alignment K1 takes unless B/P·W divides by 4.
@@ -95,14 +100,20 @@ def interleaved_chunk(
             g, j = (t - s) % P, (t - s) // P      # stage s works group g's token j
             if s == 0 and j >= 1:
                 # Token j-1 came round the ring: head and sampler.
-                h = m.final_norm(x[g][:, 0], cfg)
-                cur[g] = sample(m.logits(h), g)
-                out[j - 1, lanes[g]] = cur[g]
+                x[g] = m.hop(x[g], P - 1, 0, shape)
+                if head:
+                    h = m.final_norm(x[g][:, 0], cfg)
+                    cur[g] = sample(m.logits(h), g)
+                    out[j - 1, lanes[g]] = cur[g]
             if j >= K:
                 continue
             if s == 0:
-                x[g] = m.embed(cur[g])[:, None]
-            x[g] = llama.decode_slab(cfg, m.stages[s], x[g], m.stage_pages(k_pages, s),
-                                     m.stage_pages(v_pages, s), tables[g],
-                                     positions[lanes[g]] + j, paged_attention)
+                x[g] = m.embed(cur[g])[:, None] if head else None
+            else:
+                x[g] = m.hop(x[g], s - 1, s, shape)
+            if m.stages[s].held:
+                x[g] = llama.decode_slab(cfg, m.stages[s], x[g], m.stage_pages(k_pages, s),
+                                         m.stage_pages(v_pages, s), tables[g],
+                                         positions[lanes[g]] + j, paged_attention)
+    m.flush()
     return out

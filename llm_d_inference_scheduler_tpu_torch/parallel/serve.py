@@ -27,6 +27,17 @@ does:
   shards share a device, those copies do nothing.
 - ``gather_last`` joins vocab-sharded logits, so sampling and its
   generator run once, as on one device.
+
+Multi-process (``engine/multihost.py``): the ranks span the group's
+processes in process-major order, as the JAX global device list orders
+them (``engine/core.py:289-305``), and each process holds only its own
+ranks' shards and pages (``devices`` names the others ``None``). Under pp a
+process holds whole stages; without pp, whole tp ranks with all their ep
+ranks (``validate_dist``). The sums and the gather then take a second leg
+over the group's ``Comm``: the local partial sum, then ``all_reduce``; the
+local vocab slices, then ``all_gather``. Every process of a stage ends with
+the same residual stream, and every process of stage 0 with the same
+logits.
 """
 
 from __future__ import annotations
@@ -42,31 +53,131 @@ from .shardings import param_splits, split_tensor
 Params = dict[str, Any]
 
 
+class Comm:
+    """An engine group's process group (an explicit object: no collective
+    relies on torch.distributed's default group) and the collectives of the
+    sharded model over it. Ops go to the group object's own methods, so a
+    group built from a store in a test thread works as one built from the
+    coordinator.
+
+    gloo takes CUDA tensors for ``allreduce`` and ``allgather`` (it stages
+    them through host memory itself) but not for ``send``/``recv``: those
+    stage through pinned host memory here. NCCL takes CUDA tensors for all
+    four."""
+
+    def __init__(self, pg, rank: int, size: int, backend: str, store=None):
+        self.pg, self.rank, self.size, self.backend = pg, rank, size, backend
+        self._store = store  # a TCPStore must outlive its group
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the group's processes of ``t`` (contiguous)."""
+        t = t.contiguous()
+        self.pg.allreduce([t]).wait()
+        return t
+
+    def all_gather_last(self, t: torch.Tensor) -> torch.Tensor:
+        """Every process's ``t`` joined along the last axis in process
+        order (equal shapes)."""
+        t = t.contiguous()
+        outs = [torch.empty_like(t) for _ in range(self.size)]
+        self.pg.allgather([outs], [t]).wait()
+        return torch.cat(outs, dim=-1)
+
+    def abort(self) -> None:
+        """After a peer's death: under NCCL, abort the group's communicators,
+        so that a collective waiting on the dead peer raises now instead of
+        at the group's timeout (gloo's raises by itself once the peer's
+        sockets close)."""
+        if self.backend == "nccl":
+            self.pg.abort()
+
+    def barrier(self, device: torch.device) -> None:
+        """Return once every process of the group has called it (a one-element
+        sum on ``device``: NCCL reduces only device tensors)."""
+        self.all_reduce(torch.zeros(1, device=device))
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        return t.device.type == "cuda" and self.backend == "gloo"
+
+    def send(self, t: torch.Tensor, dst: int):
+        """Post ``t`` to process ``dst``; returns a handle whose ``wait``
+        ends the send (the staging buffer lives as long as the handle)."""
+        buf = t.contiguous()
+        if self._staged(buf):
+            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            host.copy_(buf)
+            buf = host
+        work = self.pg.send([buf], dst, 0)
+        return _Sent(work, buf)
+
+    def recv(self, shape, dtype: torch.dtype, device: torch.device,
+             src: int) -> torch.Tensor:
+        """The next tensor process ``src`` sent here."""
+        if device.type == "cuda" and self.backend == "gloo":
+            host = torch.empty(shape, dtype=dtype, pin_memory=True)
+            self.pg.recv([host], src, 0).wait()
+            return host.to(device)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        self.pg.recv([out], src, 0).wait()
+        return out
+
+
+class _Sent:
+    def __init__(self, work, buf):
+        self.work, self.buf = work, buf
+
+    def wait(self) -> None:
+        self.work.wait()
+
+
 @dataclasses.dataclass(frozen=True)
 class ServeLayout:
-    devices: tuple[torch.device, ...]  # rank r = (s * tp + t) * ep + e
+    # rank r = (s * tp + t) * ep + e; None: a rank another process holds
+    devices: tuple[torch.device | None, ...]
     tp: int = 1
     ep: int = 1
     pp: int = 1
+    comm: Comm | None = dataclasses.field(default=None, compare=False, repr=False)
 
     def ranks(self) -> Iterable[tuple[int, int, int]]:
-        """(rank, tp rank, ep rank) in rank order (``stage_of`` gives the
-        stage)."""
+        """(rank, tp rank, ep rank) of this process's ranks, in rank order
+        (``stage_of`` gives the stage)."""
         return ((r, (r // self.ep) % self.tp, r % self.ep)
-                for r in range(len(self.devices)))
+                for r in range(len(self.devices)) if self.devices[r] is not None)
+
+    @property
+    def first_device(self) -> torch.device:
+        """This process's first rank's device (stage 0's first rank's on
+        one process)."""
+        return next(d for d in self.devices if d is not None)
+
+    @property
+    def procs(self) -> int:
+        return self.comm.size if self.comm is not None else 1
+
+    def proc_of(self, r: int) -> int:
+        """The process that holds rank ``r`` (process-major order)."""
+        return r // (len(self.devices) // self.procs)
 
     def stage_of(self, r: int) -> int:
         return r // (self.tp * self.ep)
 
-    def tp_device(self, t: int, s: int = 0) -> torch.device:
+    def stage_proc(self, s: int) -> int:
+        """The process that holds stage ``s`` (under pp every stage lies
+        within one process)."""
+        return self.proc_of(s * self.tp * self.ep)
+
+    def tp_device(self, t: int, s: int = 0) -> torch.device | None:
         """The device that runs stage ``s``'s ``tp`` rank ``t``'s attention
-        and holds its KV pages."""
+        and holds its KV pages (None: another process's)."""
         return self.devices[(s * self.tp + t) * self.ep]
 
     def stage(self, s: int) -> "ServeLayout":
-        """Stage ``s``'s ranks as a layout of their own (``pp = 1``)."""
+        """Stage ``s``'s ranks as a layout of their own (``pp = 1``); it
+        keeps the group where the stage spans processes (no pp)."""
         n = self.tp * self.ep
-        return ServeLayout(self.devices[s * n:(s + 1) * n], self.tp, self.ep)
+        return ServeLayout(self.devices[s * n:(s + 1) * n], self.tp, self.ep,
+                           comm=self.comm if self.pp == 1 else None)
 
 
 @dataclasses.dataclass
@@ -92,27 +203,60 @@ def validate_tp(cfg, tp: int, ep: int = 1) -> None:
             raise ValueError(f"ep={ep} does not divide n_experts={cfg.n_experts}")
 
 
+def validate_dist(tp: int, ep: int, pp: int, procs: int) -> None:
+    """The process layouts a multi-process engine serves: the ranks split
+    evenly over the processes, a process holding whole stages under pp
+    (the JAX ring hops between hosts once per turn) and whole tp ranks with
+    all their ep ranks without it. The JAX engine also serves a remainder of
+    global devices as ``dp`` replicas; the port does not."""
+    n = pp * tp * ep
+    if pp > 1 and pp % procs:
+        raise ValueError(f"multi-host pp needs whole stages per process: "
+                         f"pp={pp} does not divide over {procs} processes")
+    if pp == 1 and tp % procs:
+        raise ValueError(f"multi-host serving without pp needs whole tp ranks "
+                         f"per process: tp={tp} does not divide over {procs} "
+                         f"processes (dp replicas are not served)")
+    if n % procs:
+        raise ValueError(f"pp*tp*ep={n} ranks do not divide over {procs} processes")
+
+
 def make_serve_layout(devices=None, tp: int = 1, ep: int = 1,
-                      pp: int = 1) -> ServeLayout:
+                      pp: int = 1, comm: Comm | None = None) -> ServeLayout:
     """The layout of ``pp * tp * ep`` ranks on ``devices`` (rank order). By
     default the first ``pp * tp * ep`` CUDA devices; an explicit list must
-    have one entry per rank and may repeat a device."""
+    have one entry per rank and may repeat a device. With ``comm`` (a
+    process group of ``P`` processes) ``devices`` names this process's
+    ``pp * tp * ep / P`` ranks only (the default: the first that many CUDA
+    devices), and the JAX check of multi-host pp applies: ``pp * tp * ep``
+    equals the group's devices."""
     if tp < 1 or ep < 1 or pp < 1:
         raise ValueError(f"tp={tp}, ep={ep} and pp={pp} must be >= 1")
-    n = pp * tp * ep
+    procs = comm.size if comm is not None else 1
+    if procs > 1:
+        validate_dist(tp, ep, pp, procs)
+    n = pp * tp * ep // procs
     what = f"tp*ep={tp}*{ep}" if pp == 1 else f"pp*tp*ep={pp}*{tp}*{ep}"
     if devices is None:
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if have < n:
-            raise ValueError(f"{what} needs {n} CUDA devices, found "
-                             f"{have}; pass an explicit device list")
+            raise ValueError(f"{what} needs {n} CUDA devices in each of {procs} "
+                             f"process(es), found {have}; pass an explicit "
+                             "device list")
         devices = [f"cuda:{i}" for i in range(n)]
     devices = list(devices)
     if len(devices) != n:
+        if procs > 1:
+            raise ValueError(
+                f"multi-host {'pp' if pp > 1 else 'tp'} needs pp*tp*ep == global "
+                f"devices ({pp * tp * ep} != {len(devices) * procs}): name "
+                f"{n} devices in each of {procs} processes")
         raise ValueError(f"{len(devices)} devices given for {what}: "
                          "name one device per rank (a device may repeat)")
-    return ServeLayout(tuple(_indexed(resolve_device(d)) for d in devices),
-                       tp, ep, pp)
+    local = [_indexed(resolve_device(d)) for d in devices]
+    me = comm.rank if comm is not None else 0
+    full = [None] * (n * me) + local + [None] * (n * (procs - me - 1))
+    return ServeLayout(tuple(full), tp, ep, pp, comm)
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -137,26 +281,28 @@ def rank_views(name: str, t: torch.Tensor, cfg, layout: ServeLayout
                ) -> list[torch.Tensor | None]:
     """Parameter ``name``'s shard of ``t`` for every rank: views, no copy;
     None for a rank that does not hold it (the embedding, the final norm
-    and the head on a later stage)."""
+    and the head on a later stage) and for another process's rank."""
     split = param_splits(cfg)[name]
-    views: list[torch.Tensor | None] = []
+    views: list[torch.Tensor | None] = [None] * len(layout.devices)
     for r, tr, er in layout.ranks():
         s = layout.stage_of(r)
         if name.startswith("layers."):
-            views.append(split_tensor(t.narrow(0, *stage_layers(t.shape[0], s, layout.pp)),
-                                      split, tr, layout.tp, er, layout.ep))
-        else:
-            views.append(split_tensor(t, split, tr, layout.tp, er, layout.ep)
-                         if s == 0 else None)
+            views[r] = split_tensor(t.narrow(0, *stage_layers(t.shape[0], s, layout.pp)),
+                                    split, tr, layout.tp, er, layout.ep)
+        elif s == 0:
+            views[r] = split_tensor(t, split, tr, layout.tp, er, layout.ep)
     return views
 
 
-def split_to_ranks(name: str, t: torch.Tensor, cfg, layout: ServeLayout
-                   ) -> list[torch.Tensor | None]:
+def split_to_ranks(name: str, t: torch.Tensor, cfg, layout: ServeLayout,
+                   views: bool = False) -> list[torch.Tensor | None]:
     """Parameter ``name``'s shard for every rank, each on its rank's device.
-    Where every rank shares one device, a shard on ``t``'s device is a view
-    of ``t``; across devices each shard owns its memory, so ``t`` can go."""
-    share = len(set(layout.devices)) == 1
+    Where every rank shares one device and this process holds them all (or
+    with ``views``), a shard on ``t``'s device is a view of ``t``; otherwise
+    each shard owns its memory, so ``t`` can go (a group's process keeps
+    only its own share of what it draws or reads)."""
+    share = views or (len({d for d in layout.devices if d is not None}) == 1
+                      and None not in layout.devices)
     return [s if s is None or share and s.device == dev
             else s.clone() if s.device == dev else s.to(dev)
             for s, dev in zip(rank_views(name, t, cfg, layout), layout.devices)]
@@ -198,36 +344,41 @@ def shard_params(params: Params, cfg, layout: ServeLayout) -> ShardedParams:
     validate_degrees(cfg, layout.tp, layout.ep, layout.pp)
     flat = {k: v for k, v in params.items() if k != "layers"}
     flat |= {f"layers.{k}": v for k, v in params["layers"].items()}
-    return from_rank_lists({name: split_to_ranks(name, t, cfg, layout)
+    return from_rank_lists({name: split_to_ranks(name, t, cfg, layout, views=True)
                             for name, t in flat.items()}, layout)
 
 
 def alloc_sharded_pages(cfg, layout: ServeLayout, n_blocks: int,
                         dtype: torch.dtype) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """Zeroed K and V pages per (stage, ``tp`` rank), ``[L/pp, N, block,
-    Hkv/tp, D]`` on the rank's attention device; index ``s * tp + t``."""
+    Hkv/tp, D]`` on the rank's attention device; index ``s * tp + t``
+    (None where another process holds the rank)."""
     shape = (cfg.n_layers // layout.pp, n_blocks, cfg.kv_block_size,
              cfg.n_kv_heads // layout.tp, cfg.head_dim)
     devs = [layout.tp_device(t, s) for s in range(layout.pp) for t in range(layout.tp)]
-    k = [torch.zeros(shape, dtype=dtype, device=d) for d in devs]
-    v = [torch.zeros(shape, dtype=dtype, device=d) for d in devs]
+    k = [None if d is None else torch.zeros(shape, dtype=dtype, device=d) for d in devs]
+    v = [None if d is None else torch.zeros(shape, dtype=dtype, device=d) for d in devs]
     return k, v
 
 
-def reduce_sum(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+def reduce_sum(parts: list[torch.Tensor], device: torch.device,
+               comm: Comm | None = None) -> torch.Tensor:
     """The sum over ranks of row-parallel partials, added in rank order on
-    ``device``. One part is returned as it is."""
+    ``device``; with ``comm``, this process's sum then summed over the group.
+    One part is returned as it is."""
     out = parts[0].to(device)
     for p in parts[1:]:
         out = out + p.to(device)
-    return out
+    return out if comm is None else comm.all_reduce(out)
 
 
-def gather_last(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
-    """Vocab-sharded values joined along the last axis on ``device``."""
-    if len(parts) == 1:
-        return parts[0].to(device)
-    return torch.cat([p.to(device) for p in parts], dim=-1)
+def gather_last(parts: list[torch.Tensor], device: torch.device,
+                comm: Comm | None = None) -> torch.Tensor:
+    """Vocab-sharded values joined along the last axis on ``device``; with
+    ``comm``, this process's slices then every process's, in process order."""
+    out = (parts[0].to(device) if len(parts) == 1
+           else torch.cat([p.to(device) for p in parts], dim=-1))
+    return out if comm is None else comm.all_gather_last(out)
 
 
 def join_kv_heads(parts: list[torch.Tensor]) -> torch.Tensor:

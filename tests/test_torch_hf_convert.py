@@ -247,12 +247,14 @@ def test_checkpoint_flag_and_prefill_batch_parse(tmp_path):
                                       "--prefill-batch", "4", "--device", "cpu"])
     assert (cfg.checkpoint_path, cfg.prefill_batch, cfg.tokenizer) == (str(tmp_path), 4,
                                                                        "byte")
-    for refused in ("--backend=tpu", "--platform=tpu", "--dist-coordinator=h:1",
-                    "--tokenizer=byte"):
+    for refused in ("--backend=tpu", "--platform=tpu", "--tokenizer=byte"):
         with pytest.raises(SystemExit):
             server_mod.parse_config([refused])
-    # Tensor, expert and pipeline parallelism, the simulator and --platform
-    # are served since; the flags parse.
+    # Tensor, expert and pipeline parallelism, the simulator, --platform and
+    # multi-process serving are served since; the flags parse.
+    cfg, _ = server_mod.parse_config(["--dist-coordinator=h:1", "--dist-num-processes=2",
+                                      "--dist-process-id=1"])
+    assert (cfg.dist_coordinator, cfg.dist_num_processes, cfg.dist_process_id) == ("h:1", 2, 1)
     cfg, _ = server_mod.parse_config(["--tp-size=2", "--ep-size=2"])
     assert (cfg.tp_size, cfg.ep_size) == (2, 2)
     cfg, _ = server_mod.parse_config(["--backend=sim", "--platform=cpu", "--pp-size=2"])
