@@ -142,6 +142,18 @@ Phases (any failure exits non-zero):
                and 13c Mixtral (8 of 32 layers, the grouped FFN selected by
                its model_config.json) pp=2 over two processes, both
                schedules, against pp=1 (K2 on wgmma in each process)
+  14. train   the training slice, every rank on the one card (no parallel
+               speed): 14a 10 AdamW steps (optax adamw's values) at llama3-8b
+               width, 2 of 32 layers, in bf16 as JAX trains, on one seeded
+               [2, 2048] batch: the loss finite and falling, the step wall,
+               tokens/s and the peak device memory; 14b one step at tp=2 x
+               sp=2 (ring attention) and one at dp=2 from the same weights and
+               batch against the tp=1 step (loss, every gradient, the sign
+               of every parameter's update); 14c ring attention and Ulysses
+               (sp 2 and 4) against causal_attention at llama3-8b's heads
+               32/8, D 128, S 2048, f32 and bf16, and ring's input gradients;
+               14d the GPipe forward (4 layers) at pp=2 with M=2 and pp=4
+               with M=4 against forward, f32 and bf16; no K1 or K2 launch
 The lines before the last carry the card's name and power limit and a JSON
 object listing each kernel once for every serving path that launches it
 (the P/D decode engine's K1 launches as path "llama3-8b P/D decode", the
@@ -3764,6 +3776,276 @@ def dist_follower(argv: list[str]) -> int:
     return 0
 
 
+# ---- phase 14: training ----------------------------------------------------------
+
+TRAIN_LAYERS = 2          # of llama3-8b's 32 (embed and head are 1.05 B of 1.49 B)
+TRAIN_BATCH = (2, 2048)
+TRAIN_STEPS = 10
+TRAIN_LR = 1e-4           # optax.adamw's default in the JAX train step
+SEQPAR_SP = (2, 4)
+PIPE_LAYERS = 4           # pp=2 runs 2 a stage, pp=4 one
+PIPE_SEQ = 256
+# The ring and Ulysses outputs against causal_attention on the same inputs:
+# f32 only sums in another order (online softmax, per-head-group batches);
+# bf16 rounds the f32 result once, so two results may lie one bf16 step
+# (2**-7 of values up to ~1.5 here) apart.
+SEQPAR_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The GPipe logits against forward's: f32 at the JAX dryrun_pipeline bound
+# (atol = rtol = 2e-3); bf16 within one bf16 step of the largest |logit|
+# (the microbatches' rows run through the same kernels as the whole batch's).
+PIPE_F32_TOL = 2e-3
+# One bf16 train step at tp=2 x sp=2 and at dp=2 against tp=1 on the same
+# weights and batch. The loss: the sums run in another order (relative
+# 1e-4). The gradients: bf16 tensors whose partial sums round in another
+# order, within 5e-2 of the tensor's largest |gradient| (a missing or
+# doubled reduction is off by the gradient's own size). The update
+# p_after - p_before: AdamW's first step moves an element by about lr
+# against its gradient's sign, so where |gradient| is above that floor the
+# update's sign (-1, 0 where the bf16 parameter does not move, +1) must be
+# tp=1's, but for a share TRAIN_UPDATE_MISMATCH of the elements, in every
+# tensor; and every tensor that tp=1's step moves must move.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL_TOL = 5e-2
+TRAIN_UPDATE_MISMATCH = 1e-3
+
+
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 values at ``x`` (> 0)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def train_one_step(cfg, params, toks, n: int, **axes) -> dict:
+    """One train step from ``params`` on a layout of ``n`` ranks on the
+    card: its loss, gradients and parameter updates, as full tensors."""
+    from llm_d_inference_scheduler_tpu_torch.models import llama
+    from llm_d_inference_scheduler_tpu_torch.parallel import mesh, train
+
+    layout = mesh.make_train_layout(["cuda"] * n, **axes)
+    state = train.make_train_state(cfg, layout, lr=TRAIN_LR, params=params)
+    loss = float(train.make_train_step(cfg, layout)(state, toks))
+    before = llama.flat_params(params)
+    return {"shape": layout.shape, "loss": loss, "grads": train.full_grads(cfg, state),
+            "updates": {name: p.float() - before[name].float()
+                        for name, p in train.full_params(cfg, state).items()}}
+
+
+def compare_steps(tag: str, got: dict, ref: dict, card: str) -> dict:
+    """The worst deviations of one step from the reference step; fails
+    beyond the stated tolerances."""
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_rel, mismatch, still = 0.0, 0.0, []
+    for name, g_ref in ref["grads"].items():
+        scale = float(g_ref.abs().max()) or 1.0
+        grad_rel = max(grad_rel, float((got["grads"][name] - g_ref).abs().max()) / scale)
+        sure = g_ref.abs() > TRAIN_GRAD_REL_TOL * scale
+        differ = got["updates"][name].sign() != ref["updates"][name].sign()
+        mismatch = max(mismatch, float((differ & sure).sum()) / max(int(sure.sum()), 1))
+        if ref["updates"][name].any() and not got["updates"][name].any():
+            still.append(name)
+    out = {"loss": got["loss"], "loss_rel_err": loss_rel, "grad_rel_err": grad_rel,
+           "update_sign_mismatch": mismatch, "unmoved": still}
+    log(f"[train] 14b {tag} {got['shape']}, {card}: loss {got['loss']:.6f} against "
+        f"{ref['loss']:.6f} (rel {loss_rel:.3e}), max |grad diff| / max |grad| "
+        f"{grad_rel:.3e}, update signs differing from tp=1's where |grad| > "
+        f"{TRAIN_GRAD_REL_TOL} max |grad|: worst tensor {mismatch:.3e}, tensors tp=1 "
+        f"moves that did not move: {still}")
+    if not loss_rel <= TRAIN_LOSS_RTOL or not grad_rel <= TRAIN_GRAD_REL_TOL \
+            or not mismatch <= TRAIN_UPDATE_MISMATCH or still:
+        fail(f"train: the {tag} step differs from the tp=1 step: {out}")
+    return out
+
+
+def check_reference_update(ref: dict, card: str) -> dict:
+    """tp=1's own update: where it moves an element with |grad| above the
+    floor, against the gradient's sign; the share of those elements it
+    moves, and the tensors it leaves as they were (bf16 spacing above lr)."""
+    moved, sure_n, wrong, still = 0, 0, 0, []
+    for name, g in ref["grads"].items():
+        upd = ref["updates"][name]
+        sure = g.abs() > TRAIN_GRAD_REL_TOL * (float(g.abs().max()) or 1.0)
+        nz = (upd != 0) & sure
+        moved += int(nz.sum())
+        sure_n += int(sure.sum())
+        wrong += int((nz & (upd.sign() == g.float().sign())).sum())
+        if not upd.any():
+            still.append(name)
+    out = {"moved_share": moved / max(sure_n, 1), "against_grad_sign": wrong,
+           "unmoved": still}
+    log(f"[train] 14b tp=1 update, {card}: {moved / max(sure_n, 1):.3f} of the elements "
+        f"with |grad| above the floor moved, {wrong} of them with the gradient's sign; "
+        f"tensors left as they were (bf16 spacing above lr): {still}")
+    if wrong or not moved:
+        fail(f"train: the tp=1 AdamW step does not move against the gradient: {out}")
+    return out
+
+
+def check_seqpar(tag: str, got: torch.Tensor, ref: torch.Tensor, tol: float) -> float:
+    err = float((got.float() - ref.float()).abs().max())
+    if not err <= tol:
+        fail(f"train: {tag} differs from causal_attention by {err} (tol {tol})")
+    return err
+
+
+def phase_train(card: str) -> dict:
+    """Phase 14, the counterpart of ``dryrun_multichip``'s train and
+    pipeline parts: 14a AdamW steps at llama3-8b width (2 of 32 layers, bf16
+    as JAX trains) on one seeded batch; 14b one step at tp=2 x sp=2 and one
+    at dp=2 (every rank on the one card) against the tp=1 step; 14c ring
+    attention and Ulysses against causal_attention at llama3-8b's heads
+    (and ring's input gradients); 14d the GPipe forward at pp=2 (M=2) and
+    pp=4 (M=4) against forward. No K1 or K2 launch."""
+    from llm_d_inference_scheduler_tpu_torch import ops
+    from llm_d_inference_scheduler_tpu_torch.models import llama
+    from llm_d_inference_scheduler_tpu_torch.models.configs import get_config
+    from llm_d_inference_scheduler_tpu_torch.ops.attention import causal_attention
+    from llm_d_inference_scheduler_tpu_torch.parallel import pipeline
+    from llm_d_inference_scheduler_tpu_torch.parallel.ring_attention import ring_attention
+    from llm_d_inference_scheduler_tpu_torch.parallel.ulysses import ulysses_attention
+
+    t_phase = time.monotonic()
+    ops.reset_kernel_launches()
+    cfg = dataclasses.replace(get_config(MODEL), n_layers=TRAIN_LAYERS)
+    out: dict = {}
+
+    # 14a: N AdamW steps on one fixed batch.
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init_params(cfg, "cuda", generator=gen)
+    n_params = sum(t.numel() for t in llama.flat_params(params).values())
+    toks = torch.randint(1, cfg.vocab_size, TRAIN_BATCH, generator=gen, device="cuda",
+                         dtype=torch.int32)
+    steps_ = train_steps(cfg, params, toks)
+    losses, walls = steps_["losses"], steps_["walls_ms"]
+    wall = sorted(walls[1:])[len(walls[1:]) // 2]
+    tok_s = TRAIN_BATCH[0] * TRAIN_BATCH[1] / (wall / 1e3)
+    peak = steps_["peak_gb"]
+    log(f"[train] 14a {cfg.name} {cfg.n_layers}l ({n_params / 1e9:.2f} B parameters, "
+        f"{cfg.dtype}), batch {list(TRAIN_BATCH)}, AdamW lr {TRAIN_LR}, {card}: losses "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"[train] 14a {card}: step wall {[round(w, 2) for w in walls]} ms (first step "
+        f"included; median of the rest {wall:.2f} ms), {tok_s:.0f} tokens/s, peak device "
+        f"memory {peak} GB")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    out["14a"] = {"losses": losses, "walls_ms": walls, "step_ms": wall,
+                  "tokens_per_s": tok_s, "peak_gb": peak, "params_b": n_params / 1e9}
+
+    # 14b: the same weights and batch at tp=2 x sp=2 and at dp=2.
+    t0 = time.monotonic()
+    ref = train_one_step(cfg, params, toks, 1, tp=1, sp=1)
+    out["14b"] = {"tp1_loss": ref["loss"], "tp1_update": check_reference_update(ref, card)}
+    for tag, n, axes in (("tp2 x sp2", 4, dict(tp=2, sp=2)), ("dp2", 2, dict(tp=1, sp=1))):
+        out["14b"][tag] = compare_steps(tag, train_one_step(cfg, params, toks, n, **axes),
+                                        ref, card)
+    del ref, params
+    gc.collect()
+    log(f"[train] 14b in {time.monotonic() - t0:.1f}s")
+
+    # 14c: ring attention and Ulysses at llama3-8b's heads against
+    # causal_attention, and ring's input gradients (f32).
+    t0 = time.monotonic()
+    B, S = TRAIN_BATCH
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    errs: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device="cuda").to(dtype)
+                   for h in (H, Hkv, Hkv))
+        ref_attn = causal_attention(q, k, v)
+        for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+            for sp in SEQPAR_SP:
+                errs[f"{name} sp{sp} {str(dtype)[6:]}"] = check_seqpar(
+                    f"{name} sp={sp} {dtype}", fn(q, k, v, n_shards=sp,
+                                                  devices=["cuda"] * sp),
+                    ref_attn, SEQPAR_TOL[dtype])
+        del q, k, v, ref_attn
+    arrays = [torch.randn(B, S, h, D, generator=gen, device="cuda") for h in (H, Hkv, Hkv)]
+    upstream = torch.randn(B, S, H, D, generator=gen, device="cuda")
+    grads = {}
+    for name, fn in [("causal", causal_attention)] + [
+            (f"ring sp{sp}", lambda q, k, v, sp=sp: ring_attention(
+                q, k, v, n_shards=sp, devices=["cuda"] * sp)) for sp in SEQPAR_SP]:
+        leaves = [a.clone().requires_grad_(True) for a in arrays]
+        (fn(*leaves) * upstream).sum().backward()
+        grads[name] = [t.grad for t in leaves]
+    for sp in SEQPAR_SP:
+        errs[f"ring sp{sp} input grads f32"] = max(
+            check_seqpar(f"ring sp={sp} d{'qkv'[i]}", g, want, SEQPAR_TOL[torch.float32])
+            for i, (g, want) in enumerate(zip(grads[f"ring sp{sp}"], grads["causal"])))
+    del arrays, upstream, grads
+    torch.cuda.synchronize()
+    log(f"[train] 14c {card}: H/Hkv {H}/{Hkv}, D {D}, [B, S] {[B, S]}; max |diff| "
+        f"against causal_attention {errs} (tol f32 {SEQPAR_TOL[torch.float32]}, bf16 "
+        f"{SEQPAR_TOL[torch.bfloat16]}) in {time.monotonic() - t0:.1f}s")
+    out["14c"] = errs
+
+    # 14d: the GPipe forward against forward, f32 and bf16.
+    t0 = time.monotonic()
+    pcfg = dataclasses.replace(cfg, n_layers=PIPE_LAYERS)
+    full = llama.init_params(pcfg, "cuda", "float32", generator=gen)
+    pipe: dict = {}
+    for dtype in ("float32", "bfloat16"):
+        p = full if dtype == "float32" else {
+            **{k: t.to(torch.bfloat16) for k, t in full.items() if k != "layers"},
+            "layers": {k: t.to(torch.bfloat16) for k, t in full["layers"].items()}}
+        for pp, M in ((2, 2), (4, 4)):
+            ptoks = torch.randint(1, pcfg.vocab_size, (2 * M, PIPE_SEQ), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            with torch.no_grad():
+                want, _ = llama.forward(p, pcfg, ptoks)
+                layout = pipeline.make_pp_layout(["cuda"] * pp)
+                got = pipeline.make_pp_forward(pcfg, layout, M)(
+                    pipeline.shard_params_pp(p, pcfg, layout), ptoks)
+            err = float((got - want).abs().max())
+            top = float(want.abs().max())
+            tol = PIPE_F32_TOL if dtype == "float32" else bf16_step(top)
+            pipe[f"pp{pp} M{M} {dtype}"] = {"max_abs_err": err, "max_abs_logit": top,
+                                            "tol": tol}
+            ok = (torch.allclose(got, want, atol=tol, rtol=tol)
+                  if dtype == "float32" else err <= tol)
+            if not ok:
+                fail(f"train: GPipe pp={pp} M={M} {dtype} logits differ from forward's "
+                     f"by {err} (max |logit| {top}, tol {tol})")
+            del want, got
+        del p
+    del full
+    gc.collect()
+    log(f"[train] 14d {card}: GPipe ({PIPE_LAYERS} layers, [2M, {PIPE_SEQ}] tokens) "
+        f"against forward {pipe} (f32 atol=rtol {PIPE_F32_TOL}, bf16 one bf16 step "
+        f"of max |logit|) in {time.monotonic() - t0:.1f}s")
+    out["14d"] = pipe
+
+    launches = ops.kernel_launches()
+    log(f"[train] {card}: phase 14 in {time.monotonic() - t_phase:.1f}s; kernel "
+        f"launches {launches} (the train path runs no TPU-kernel counterpart)")
+    if any(launches.values()):
+        fail(f"train: the train path launched K1 or K2: {launches}")
+    out["launches"] = launches
+    return out
+
+
+def train_steps(cfg, params, toks) -> dict:
+    """TRAIN_STEPS AdamW steps at tp=1 from ``params`` on ``toks``: the
+    losses, each step's wall (ms, ending in a sync) and the peak device
+    memory."""
+    from llm_d_inference_scheduler_tpu_torch.parallel import mesh, train
+
+    layout = mesh.make_train_layout(["cuda"], tp=1, sp=1)
+    torch.cuda.reset_peak_memory_stats()
+    state = train.make_train_state(cfg, layout, lr=TRAIN_LR, params=params)
+    step = train.make_train_step(cfg, layout)
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(state, toks)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    peak = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+    del state
+    gc.collect()
+    return {"losses": losses, "walls_ms": walls, "peak_gb": peak}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--dist-follower"]:
         return dist_follower(sys.argv[2:])
@@ -3977,6 +4259,11 @@ def main() -> int:
     t13 += time.monotonic() - t0
     # 12. the CPU simulator from the parser: no kernel.
     asyncio.run(phase_sim(card))
+    # 14. training: AdamW steps at llama3-8b width, tp x sp and dp steps
+    # against tp=1, ring attention and Ulysses, the GPipe forward. Phase 14
+    # resets the peak-memory counter for its own reading.
+    serve_peak = torch.cuda.max_memory_allocated()
+    train = phase_train(card)
     K1 = paged_attention.KERNEL
     # Each pp path's K1 entry is timed at the lanes it mostly launches at
     # (K1_TIMED); its launches by shape are in the phase's log lines.
@@ -4030,8 +4317,12 @@ def main() -> int:
         f"(tp=1) {tp_pd_launches}, {MOE_SERVED} ep{EP} serve {ep_launches}, pp paths "
         f"{[(e['path'], e['launches']) for e in entries if ' pp' in e['path']]}; "
         f"peak device memory allocated "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        f"{max(serve_peak, torch.cuda.max_memory_allocated()) / 1e9:.1f} GB")
 
+    log(f"[done] training (phase 14): losses {train['14a']['losses']}, step "
+        f"{train['14a']['step_ms']:.2f} ms, {train['14a']['tokens_per_s']:.0f} tokens/s, "
+        f"kernel launches {train['launches']}; 14b {train['14b']}; 14c {train['14c']}; "
+        f"14d {train['14d']}")
     log(f"[done] all phases passed in {time.monotonic() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -13,6 +13,11 @@ from ..models.configs import ModelConfig, get_config
 class EngineConfig:
     model: str = "tiny"           # registry name or a dir with model_config.json
     served_model_name: str | None = None
+    # The id /health, /debug/kv, /debug/traces, every KV-event document and
+    # the P/D exporter's remote_engine_id report; empty = a random
+    # "torch-<8 hex>" ("sim-<8 hex>" for the sim) minted at start. A
+    # --dist-* group's processes build from one config, so they share it.
+    engine_id: str = ""
     # "torch" (TorchEngine) | "sim" (engine/sim.py: the CPU simulator with
     # scripted latencies, which runs no model). The JAX package's "tpu"
     # engine has no counterpart here.

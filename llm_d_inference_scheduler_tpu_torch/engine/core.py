@@ -246,7 +246,7 @@ class TorchEngine:
             params = checkpoint.load_params(cfg.checkpoint_path, self.mcfg,
                                             self.device, self.dtype,
                                             layout=self.layout)
-        self.engine_id = f"torch-{uuid.uuid4().hex[:8]}"
+        self.engine_id = cfg.engine_id or f"torch-{uuid.uuid4().hex[:8]}"
         self.model_name = cfg.model_name
 
         block = self.mcfg.kv_block_size

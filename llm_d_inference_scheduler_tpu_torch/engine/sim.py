@@ -87,7 +87,7 @@ class SimEngine:
     def __init__(self, cfg: EngineConfig):
         self.cfg = cfg
         self.mcfg = cfg.model_config
-        self.engine_id = f"sim-{uuid.uuid4().hex[:8]}"
+        self.engine_id = cfg.engine_id or f"sim-{uuid.uuid4().hex[:8]}"
         self.tokenizer = get_tokenizer(cfg.tokenizer, self.mcfg.vocab_size)
         self.model_name = cfg.model_name
         block = self.mcfg.kv_block_size

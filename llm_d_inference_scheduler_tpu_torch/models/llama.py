@@ -353,8 +353,9 @@ def forward(
     kv_valid: torch.Tensor | None = None,     # [B, S] padding mask
     mm_embeds: torch.Tensor | None = None,    # [B, M, D] multimodal vectors
     mm_positions: torch.Tensor | None = None,  # [B, M] target positions
+    attention_fn: Callable[..., torch.Tensor] = causal_attention,
 ) -> tuple[torch.Tensor, tuple | None]:
-    """Full-sequence forward (prefill). Returns (logits [B, S, V] f32 — or
+    """Full-sequence forward (prefill, training). Returns (logits [B, S, V] f32 — or
     the final-norm hidden states [B, S, D] as f32 with ``want_hidden`` —,
     (K, V) each [L, B, S, Hkv, Dh] if ``want_kv``; with ``ShardedParams``
     K and V are lists over the (stage, tp) ranks of [L/pp, B, S, Hkv/tp,
@@ -365,7 +366,12 @@ def forward(
     cast to the embeddings' dtype; a position ``>= S`` (a caller's padding)
     is dropped, as the JAX scatter's ``mode="drop"`` drops it. The splice
     happens before stage 0. Each stage runs its layers in turn, the
-    activation moving to the next stage's device (the JAX ``ppermute``)."""
+    activation moving to the next stage's device (the JAX ``ppermute``).
+
+    ``attention_fn`` (the JAX hook) computes each layer's attention, called
+    once per tp rank on that rank's heads with ``causal_attention``'s
+    keyword arguments: the sequence-parallel paths (``parallel/
+    ring_attention.py``, ``parallel/ulysses.py``) substitute theirs."""
     m = _Model(params)
     B, S = tokens.shape
     if positions is None:
@@ -384,24 +390,10 @@ def forward(
             x = m.hop(x, s - 1, s, shape)
         if not st.held:
             continue
-        per_tp = {}
-        for t in st.local_tp:
-            dev = st.layout.tp_device(t)
-            per_tp[t] = (cos.to(dev), sin.to(dev), positions.to(dev),
-                         None if kv_valid is None else kv_valid.to(dev))
-
-        def attend(t, lp, xt):
-            c, s_, pos, valid = per_tp[t]
-            q, k, v = _qkv(cfg, lp, xt, c, s_)
-            if want_kv:
-                ks[s * m.tp + t].append(k)
-                vs[s * m.tp + t].append(v)
-            return causal_attention(q, k, v, q_positions=pos, kv_positions=pos,
-                                    kv_valid=valid)
-
-        x = x.to(st.dev)
-        for lps in st.layers:
-            x = st.layer(cfg, lps, x, attend)
+        kv_out = ((ks[s * m.tp:(s + 1) * m.tp], vs[s * m.tp:(s + 1) * m.tp])
+                  if want_kv else None)
+        x = run_stage(cfg, st, x, positions, cos, sin, kv_valid=kv_valid,
+                      attention_fn=attention_fn, kv_out=kv_out)
     x = m.hop(x, m.pp - 1, 0, shape)
     m.flush()
     kv = None
@@ -416,6 +408,35 @@ def forward(
     if want_hidden:
         return x.float(), kv
     return m.logits(x), kv
+
+
+def run_stage(cfg: ModelConfig, st: _Stage, x: torch.Tensor, positions: torch.Tensor,
+              cos: torch.Tensor, sin: torch.Tensor, *,
+              kv_valid: torch.Tensor | None = None,
+              attention_fn: Callable[..., torch.Tensor] = causal_attention,
+              kv_out: tuple[list, list] | None = None) -> torch.Tensor:
+    """Stage ``st``'s layers over the full sequences ``x`` [B, S, D] (the
+    JAX layer scan): returns the stage's output on its device. Each tp rank
+    attends through ``attention_fn`` on its own heads; with ``kv_out`` (K
+    and V lists, one list per tp rank) each layer's K and V are appended."""
+    per_tp = {}
+    for t in st.local_tp:
+        dev = st.layout.tp_device(t)
+        per_tp[t] = (cos.to(dev), sin.to(dev), positions.to(dev),
+                     None if kv_valid is None else kv_valid.to(dev))
+
+    def attend(t, lp, xt):
+        c, s_, pos, valid = per_tp[t]
+        q, k, v = _qkv(cfg, lp, xt, c, s_)
+        if kv_out is not None:
+            kv_out[0][t].append(k)
+            kv_out[1][t].append(v)
+        return attention_fn(q, k, v, q_positions=pos, kv_positions=pos, kv_valid=valid)
+
+    x = x.to(st.dev)
+    for lps in st.layers:
+        x = st.layer(cfg, lps, x, attend)
+    return x
 
 
 def _splice(x: torch.Tensor, mm_embeds: torch.Tensor,

@@ -238,12 +238,8 @@ def make_serve_layout(devices=None, tp: int = 1, ep: int = 1,
     n = pp * tp * ep // procs
     what = f"tp*ep={tp}*{ep}" if pp == 1 else f"pp*tp*ep={pp}*{tp}*{ep}"
     if devices is None:
-        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if have < n:
-            raise ValueError(f"{what} needs {n} CUDA devices in each of {procs} "
-                             f"process(es), found {have}; pass an explicit "
-                             "device list")
-        devices = [f"cuda:{i}" for i in range(n)]
+        devices = cuda_devices(n, f"{what} needs {n} CUDA devices in each of "
+                                  f"{procs} process(es)")
     devices = list(devices)
     if len(devices) != n:
         if procs > 1:
@@ -257,6 +253,15 @@ def make_serve_layout(devices=None, tp: int = 1, ep: int = 1,
     me = comm.rank if comm is not None else 0
     full = [None] * (n * me) + local + [None] * (n * (procs - me - 1))
     return ServeLayout(tuple(full), tp, ep, pp, comm)
+
+
+def cuda_devices(n: int | None = None, need: str = "no CUDA device") -> list[str]:
+    """The names of the first ``n`` CUDA devices (by default every one);
+    raises ``need`` where there are fewer, or none."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < (n or 1):
+        raise ValueError(f"{need}, found {have}; pass an explicit device list")
+    return [f"cuda:{i}" for i in range(have if n is None else n)]
 
 
 def _indexed(dev: torch.device) -> torch.device:

@@ -89,3 +89,17 @@ def put_split(dst: torch.Tensor, index: tuple[int, ...], src: torch.Tensor,
         else:
             src = src.narrow(pos - len(idx), rank * size, size)
     dst[tuple(idx)].copy_(src)
+
+
+def join_shards(shards: list[torch.Tensor], split: Split, tp: int, ep: int = 1
+                ) -> torch.Tensor:
+    """The inverse of ``split_tensor``: the full tensor from every rank's
+    shard (rank ``t * ep + e``), joined on the first shard's device. A
+    replicated parameter is the first rank's."""
+    dev = shards[0].device
+    per_tp = []
+    for t in range(tp if split.tp is not None else 1):
+        parts = [shards[t * ep + e].to(dev)
+                 for e in range(ep if split.ep is not None else 1)]
+        per_tp.append(torch.cat(parts, dim=split.ep) if len(parts) > 1 else parts[0])
+    return torch.cat(per_tp, dim=split.tp) if len(per_tp) > 1 else per_tp[0]

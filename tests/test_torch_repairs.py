@@ -17,7 +17,10 @@ and warm-up, held against the JAX package on the CPU.
   the same request: a budget <= 0 answers 504 with ``x-removal-reason:
   deadline-exceeded`` before admission, an expired non-streaming budget
   answers 504 and aborts the engine request (its blocks come back), a
-  stream's watchdog closes the connection before ``[DONE]``.
+  stream's watchdog closes the connection before ``[DONE]``;
+- ``EngineConfig.engine_id``: a port engine and a port sim built with one
+  report it on ``/health`` and in their KV-event documents, as the JAX
+  sim does on the same config.
 """
 
 import asyncio
@@ -486,3 +489,41 @@ def test_stream_watchdog_closes_the_connection(deadline_pair):
     status, _, data = _raw(port_srv.port, "/v1/completions", {**body, "max_tokens": 4},
                            {"x-request-timeout": "30"})
     assert status == 200 and data.rstrip().endswith(b"data: [DONE]")
+
+
+# ---- engine_id -------------------------------------------------------------------
+
+
+def test_configured_engine_id_reaches_health_and_kv_events(loop):
+    servers = {
+        "port": EngineServer(EngineConfig(model="tiny", device="cpu", port=0,
+                                          max_model_len=128, engine_id="pod-a")),
+        "port-sim": EngineServer(EngineConfig(backend="sim", model="tiny", port=0,
+                                              engine_id="pod-a")),
+        "jax-sim": JaxEngineServer(JaxEngineConfig(backend="sim", model="tiny",
+                                                   port=_free_port(), engine_id="pod-a")),
+    }
+    docs: dict[str, list[dict]] = {name: [] for name in servers}
+    for name, srv in servers.items():
+        _run(loop, srv.start())
+        hub = srv.engine.kv_events.hub
+        push = hub.push
+        hub.push = lambda doc, push=push, seen=docs[name]: (seen.append(doc), push(doc))
+    try:
+        for name, srv in servers.items():
+            port = _port_of(srv)
+            status, health = _request(port, "/health")
+            assert status == 200 and health["engine_id"] == "pod-a", (name, health)
+            status, _ = _request(port, "/v1/completions", {
+                "prompt": PROMPT, "max_tokens": 2, "temperature": 0})
+            assert status == 200, name
+            deadline = time.monotonic() + 10
+            while not any(d["event"] == "stored" for d in docs[name]):
+                assert time.monotonic() < deadline, f"no stored event from {name}"
+                time.sleep(0.01)
+            assert {d["engine_id"] for d in docs[name]} == {"pod-a"}, name
+        # Left empty, each engine still mints its own prefixed id.
+        assert EngineConfig().engine_id == ""
+    finally:
+        for srv in servers.values():
+            _run(loop, srv.stop(), 60)
