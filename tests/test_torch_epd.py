@@ -21,7 +21,6 @@ unchanged gateway and sidecar:
 import asyncio
 import dataclasses
 import json
-import socket
 import threading
 import urllib.error
 import urllib.request
@@ -30,6 +29,7 @@ import jax
 import numpy as np
 import pytest
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine import EngineRequest as JaxRequest
 from llm_d_inference_scheduler_tpu.engine.core import TpuEngine
@@ -46,12 +46,6 @@ from llm_d_inference_scheduler_tpu_torch.models.convert_jax import params_from_n
 from llm_d_inference_scheduler_tpu_torch.models.vision import VIT_TINY
 
 D = jax_configs.TINY.d_model
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _request(port, path, body=None, headers=None, timeout=90):
@@ -96,7 +90,7 @@ def _port_server(loop, **kw):
 
 
 def _jax_server(loop, **kw):
-    cfg = JaxEngineConfig(**{"model": "tiny", "port": _free_port(),
+    cfg = JaxEngineConfig(**{"model": "tiny", "port": free_port(),
                              "kv_events_port": 0, **kw})
     srv = JaxEngineServer(cfg)
     _run(loop, srv.start())
@@ -186,7 +180,7 @@ def test_epd_fanout_through_gateway_and_sidecar(loop):
     dec = _port_server(loop, role="decode")
     pre = _port_server(loop, role="prefill")
     enc = _port_server(loop, role="encode")
-    sc_port, gw_port = _free_port(), _free_port()
+    sc_port, gw_port = free_port(), free_port()
     sc = Sidecar(SidecarConfig(port=sc_port, decoder_url=f"http://127.0.0.1:{dec.port}",
                                ssrf_allowlist=[f"127.0.0.1:{pre.port}",
                                                f"127.0.0.1:{enc.port}"]))
@@ -267,7 +261,7 @@ schedulingProfiles:
 def test_epd_embeddings_reach_prefill_and_change_output(loop):
     dec = _port_server(loop)
     enc = _port_server(loop, role="encode")
-    sc = Sidecar(SidecarConfig(port=_free_port(),
+    sc = Sidecar(SidecarConfig(port=free_port(),
                                decoder_url=f"http://127.0.0.1:{dec.port}"))
     _run(loop, sc.start())
     try:
@@ -293,7 +287,7 @@ def test_epd_item_order_preserved_across_hosts(loop):
     dec = _port_server(loop)
     enc_a = _port_server(loop, role="encode")
     enc_b = _port_server(loop, role="encode", seed=1)
-    sc = Sidecar(SidecarConfig(port=_free_port(),
+    sc = Sidecar(SidecarConfig(port=free_port(),
                                decoder_url=f"http://127.0.0.1:{dec.port}"))
     _run(loop, sc.start())
     try:
@@ -317,7 +311,7 @@ def test_epd_item_order_preserved_across_hosts(loop):
         assert prompt == [0] * mm.shape[0] + [5, 6]
         # A source that is down is skipped with a warning; a width other
         # than d_model is ignored.
-        dead = f"127.0.0.1:{_free_port()}"
+        dead = f"127.0.0.1:{free_port()}"
         _, mm2, _ = _run(loop, dec._resolve_multimodal(
             {"request_id": rid, "ec_sources": [dead, sources[1]]}, [5]))
         np.testing.assert_array_equal(mm2, rec_b["embeds"])

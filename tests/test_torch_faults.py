@@ -14,13 +14,13 @@
 """
 
 import asyncio
-import socket
 import time
 
 import httpx
 import numpy as np
 import pytest
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine.server import EngineServer as JaxEngineServer
 from llm_d_inference_scheduler_tpu.router import resilience
@@ -31,12 +31,6 @@ from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
 from llm_d_inference_scheduler_tpu_torch.utils import faults
 
 CHAOS_SEED = 7
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _metric_value(text: str, needle: str) -> float:
@@ -136,7 +130,7 @@ def test_request_kinds_behave_as_the_jax_server(kind):
 
     async def body():
         port_srv = _port_engine(spec)
-        jax_srv = _jax_sim(spec, _free_port())
+        jax_srv = _jax_sim(spec, free_port())
         await port_srv.start()
         await jax_srv.start()
         try:
@@ -197,7 +191,7 @@ resilience:
   breakerFailureThreshold: 2
   breakerOpenS: 0.5
 """
-        gw_port = _free_port()
+        gw_port = free_port()
         gw = build_gateway(cfg, port=gw_port, poll_interval=0.02)
         await gw.start()
         try:
@@ -260,7 +254,7 @@ resilience:
   retryBudgetBurst: 2
   breakerFailureThreshold: 1000
 """
-        gw_port = _free_port()
+        gw_port = free_port()
         gw = build_gateway(cfg, port=gw_port, poll_interval=0.02)
         await gw.start()
         try:

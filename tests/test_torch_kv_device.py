@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine.core import TpuEngine
 from llm_d_inference_scheduler_tpu.engine.server import EngineServer as JaxEngineServer
@@ -39,7 +40,7 @@ from llm_d_inference_scheduler_tpu_torch.engine import kv_transfer
 from llm_d_inference_scheduler_tpu_torch.engine.config import EngineConfig
 from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
 from test_torch_multihost import weights  # noqa: F401 (fixture)
-from test_torch_pd import COMMON, Node, _complete, _free_port, _port_node, loop  # noqa: F401
+from test_torch_pd import COMMON, Node, _complete, _port_node, loop  # noqa: F401
 
 PROMPT = [1] + [(i * 11) % 400 + 3 for i in range(40)]
 N_GEN = 6
@@ -150,7 +151,7 @@ def test_jax_importer_takes_kv_from_port_exporter(loop, weights, mono, cpu_devic
     JAX."""
     model, jparams, tparams = weights
     pre = _port_node(loop, model, tparams, kv_transfer="device")
-    cfg = JaxEngineConfig(model=model, port=_free_port(), kv_events_port=0, **COMMON)
+    cfg = JaxEngineConfig(model=model, port=free_port(), kv_events_port=0, **COMMON)
     dec = Node(loop, JaxEngineServer(cfg, engine=TpuEngine(cfg, params=jparams)))
     try:
         assert dec.engine.kv_transfer_server is not None
@@ -170,7 +171,7 @@ def test_port_importer_ignores_jax_device_keys(loop, weights, mono, cpu_device_w
     ``transfer_address``; a port importer with its device wire up skips the
     JAX keys (and a sharded JAX export's) and takes /kv."""
     model, jparams, tparams = weights
-    cfg = JaxEngineConfig(model=model, port=_free_port(), kv_events_port=0, **COMMON)
+    cfg = JaxEngineConfig(model=model, port=free_port(), kv_events_port=0, **COMMON)
     pre = Node(loop, JaxEngineServer(cfg, engine=TpuEngine(cfg, params=jparams)))
     dec = _port_node(loop, model, tparams, kv_transfer="device")
     try:

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import zmq
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine import EngineRequest as JaxRequest
 from llm_d_inference_scheduler_tpu.engine.core import TpuEngine
@@ -53,12 +54,6 @@ BLOCK = 16
 def _prompt(seed: int, n: int) -> list[int]:
     rng = np.random.default_rng(seed)
     return [1] + [int(t) for t in rng.integers(3, 450, size=n - 1)]
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _wait_for(pred, timeout: float, what: str):
@@ -156,7 +151,7 @@ def test_stored_and_removed_sets_match_jax_engine(f32, caching, blocks):
     model, jparams, tparams = f32
     common = dict(model=model, max_batch=2, max_model_len=128, decode_chunk=4,
                   enable_prefix_caching=caching, hbm_kv_blocks=blocks)
-    jax_eng = TpuEngine(JaxEngineConfig(**common, kv_events_port=_free_port(),
+    jax_eng = TpuEngine(JaxEngineConfig(**common, kv_events_port=free_port(),
                                         kv_transfer="host"), params=jparams)
     port_eng = TorchEngine(EngineConfig(**common, device="cpu"), params=tparams)
     jax_events = _run(jax_eng, JaxRequest)
@@ -204,8 +199,8 @@ def test_pd_import_events_match_jax_engine(loop, f32):
     port_cfg = EngineConfig(**common, device="cpu", port=0)
     exporter = EngineServer(port_cfg, engine=TorchEngine(port_cfg, params=tparams))
     port_d = EngineServer(port_cfg, engine=TorchEngine(port_cfg, params=tparams))
-    jax_cfg = JaxEngineConfig(**common, port=_free_port(),
-                              kv_events_port=_free_port(), kv_transfer="host")
+    jax_cfg = JaxEngineConfig(**common, port=free_port(),
+                              kv_events_port=free_port(), kv_transfer="host")
     jax_d = JaxEngineServer(jax_cfg, engine=TpuEngine(jax_cfg, params=jparams))
     taps = {"port": _tap(port_d.engine), "jax": _tap(jax_d.engine)}
     servers = [_start(loop, s) for s in (exporter, port_d, jax_d)]
@@ -368,7 +363,7 @@ def _recv(sock, deadline_s: float) -> list[bytes]:
 def test_zmq_leg_is_the_jax_wire(loop):
     """An explicit kv_events_port publishes the JAX publisher's multipart
     frames: the same topic and, for the same document, the same bytes."""
-    zport, jport = _free_port(), _free_port()
+    zport, jport = free_port(), free_port()
     srv = _start(loop, EngineServer(EngineConfig(
         model="tiny", device="cpu", port=0, max_model_len=128,
         kv_events_port=zport)))
@@ -413,7 +408,7 @@ def test_without_pyzmq(loop, monkeypatch, caplog):
     monkeypatch.setitem(sys.modules, "zmq", None)  # import zmq -> ImportError
     assert not kv_events.zmq_available()
     eng = TorchEngine(EngineConfig(model="tiny", device="cpu", max_model_len=64,
-                                   kv_events_port=_free_port()))
+                                   kv_events_port=free_port()))
     with pytest.raises(RuntimeError, match="pyzmq"):
         asyncio.run(eng.start())
     assert eng._thread is None

@@ -42,6 +42,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine import EngineRequest as JaxRequest
 from llm_d_inference_scheduler_tpu.engine import multihost as jax_mh
@@ -66,12 +67,6 @@ GROUPS = [("tp2", 2, 1), ("pp2", 1, 2)]
 CHILD_TIMEOUT_S = 120
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def model_dir(tmp_path_factory, dtype="float32"):
     d = tmp_path_factory.mktemp(f"tiny_{dtype}")
     fields = dataclasses.asdict(jax_configs.TINY) | {"dtype": dtype}
@@ -86,7 +81,7 @@ class Group:
 
     def __init__(self, n: int, cfg_kw: dict, params=None):
         store = dist.HashStore()
-        instr = _free_port()
+        instr = free_port()
         self.engines: list = [None] * n
         errors: list = []
 
@@ -296,7 +291,7 @@ def test_channel_liveness_in_process():
     follower fires the peer monitor and breaks broadcast; a silent leader
     trips the recv deadline."""
     box = {}
-    port = _free_port()
+    port = free_port()
     t = _leader_in_thread(multihost, port, 0.1, box)
     follower = multihost.InstructionChannel(leader=False, host="127.0.0.1", port=port,
                                             recv_timeout=2.0)
@@ -308,7 +303,7 @@ def test_channel_liveness_in_process():
             follower.recv()
     follower.close()
 
-    port = _free_port()
+    port = free_port()
     lost = threading.Event()
     t = _leader_in_thread(multihost, port, 0.0, box)
     follower = multihost.InstructionChannel(leader=False, host="127.0.0.1", port=port,
@@ -328,7 +323,7 @@ def test_channel_liveness_in_process():
         time.sleep(0.05)
     leader.close()
 
-    port = _free_port()
+    port = free_port()
     t = _leader_in_thread(multihost, port, 0.0, box)
     follower = multihost.InstructionChannel(leader=False, host="127.0.0.1", port=port,
                                             recv_timeout=0.3)
@@ -346,7 +341,7 @@ def test_channel_framing_interoperates_with_jax(lead, follow):
     arguments) decode in a follower of the other package, and the
     follower's hello reaches the leader."""
     box = {}
-    port = _free_port()
+    port = free_port()
     t = _leader_in_thread(lead, port, 0.05, box)
     follower = follow.InstructionChannel(leader=False, host="127.0.0.1", port=port,
                                          recv_timeout=5.0,
@@ -418,7 +413,7 @@ def test_leader_degrades_when_follower_dies(tmp_path):
     """A follower process (the server CLI) joins a leader served in this
     process; killing it mid-request ends the request, turns /health 503
     ``degraded`` and makes new work end at once: no call hangs."""
-    coord, instr = _free_port(), _free_port()
+    coord, instr = free_port(), free_port()
     follower = _spawn(_cli(1, coord, instr, 0), tmp_path / "follower.log")
     try:
         cfg, _ = server_mod.parse_config(_cli(0, coord, instr, 0)[3:])
@@ -483,7 +478,7 @@ def test_leader_degrades_when_follower_dies(tmp_path):
 def test_follower_exits_when_leader_crashes(tmp_path):
     """Both processes from the server CLI; SIGKILL on the leader makes the
     follower exit nonzero (LeaderLost), within its recv deadline."""
-    coord, instr, port = _free_port(), _free_port(), _free_port()
+    coord, instr, port = free_port(), free_port(), free_port()
     leader = _spawn(_cli(0, coord, instr, port), tmp_path / "leader.log")
     follower = _spawn(_cli(1, coord, instr, 0), tmp_path / "follower.log")
     try:

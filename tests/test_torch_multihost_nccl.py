@@ -15,7 +15,6 @@ collectives do not fail when a peer's sockets close as gloo's do:
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import threading
@@ -26,18 +25,14 @@ import urllib.request
 import pytest
 import torch
 
+from _net import free_port
+
 pytestmark = [pytest.mark.cuda, pytest.mark.skipif(
     not torch.cuda.is_available() or torch.cuda.device_count() < 2,
     reason="needs two CUDA devices (an NCCL group of one rank per card)")]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 START_TIMEOUT_S = 240.0
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _cli(pid: int, coord: int, instr: int, port: int) -> list[str]:
@@ -95,7 +90,7 @@ def _post(port: int, body: dict, timeout: float):
 
 @pytest.fixture
 def group(tmp_path):
-    coord, instr, port = _free_port(), _free_port(), _free_port()
+    coord, instr, port = free_port(), free_port(), free_port()
     leader = _spawn(_cli(0, coord, instr, port), tmp_path / "leader.log")
     follower = _spawn(_cli(1, coord, instr, 0), tmp_path / "follower.log")
     try:

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine import kv_shards as jax_kv_shards
 from llm_d_inference_scheduler_tpu.engine import shard_wire as jax_wire
@@ -41,7 +42,7 @@ from llm_d_inference_scheduler_tpu_torch.engine import kv_shards, kv_transfer
 from llm_d_inference_scheduler_tpu_torch.engine import shard_wire
 from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
 from test_torch_multihost import COMMON, Group, weights  # noqa: F401 (fixture)
-from test_torch_pd import Node, _complete, _free_port, _request
+from test_torch_pd import Node, _complete, _request
 
 PROMPT = [1] + list(range(20, 80))
 N_GEN = 6
@@ -68,7 +69,7 @@ def cpu_device_wire(monkeypatch):
 @pytest.fixture(scope="module")
 def mono(loop, weights):
     model, jparams, _ = weights
-    cfg = JaxEngineConfig(model=model, port=_free_port(), kv_events_port=0,
+    cfg = JaxEngineConfig(model=model, port=free_port(), kv_events_port=0,
                           kv_transfer="host", **COMMON)
     node = Node(loop, JaxEngineServer(cfg, engine=TpuEngine(cfg, params=jparams)))
     _complete(node.port, PROMPT, N_GEN, rid="mono")

@@ -23,7 +23,6 @@ the JAX single-device engine and model:
 import asyncio
 import dataclasses
 import json
-import socket
 import threading
 import urllib.request
 import uuid
@@ -34,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine.core import TpuEngine
 from llm_d_inference_scheduler_tpu.engine.server import EngineServer as JaxEngineServer
@@ -291,12 +291,6 @@ class _Loop:
         self.thread.join(10)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _tap(engine):
     tokens: dict[str, list[int]] = {}
     emit = engine._emit
@@ -324,7 +318,7 @@ def test_kv_export_of_tp2_engine_imports_into_jax_and_back(tmp_path_factory):
         for key, tp in (("pre2", 2), ("mono1", 1), ("pre1", 1), ("dec2", 2)):
             cfg = EngineConfig(**common, device="cpu", port=0, tp_size=tp)
             servers[key] = EngineServer(cfg, engine=TorchEngine(cfg, params=full))
-        jcfg = JaxEngineConfig(**common, port=_free_port(), kv_events_port=0,
+        jcfg = JaxEngineConfig(**common, port=free_port(), kv_events_port=0,
                                kv_transfer="host")
         servers["jdec"] = JaxEngineServer(jcfg, engine=TpuEngine(jcfg, params=jp))
         taps = {k: _tap(s.engine) for k, s in servers.items()}

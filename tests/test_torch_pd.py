@@ -20,7 +20,6 @@ import concurrent.futures
 import dataclasses
 import http.server
 import json
-import socket
 import threading
 import time
 import urllib.error
@@ -34,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine.core import TpuEngine
 from llm_d_inference_scheduler_tpu.engine.server import EngineServer as JaxEngineServer
@@ -57,12 +57,6 @@ def _prompt(seed: int, n: int = 100) -> list[int]:
     hit between two cases)."""
     rng = np.random.default_rng(seed)
     return [1] + [int(t) for t in rng.integers(3, 450, size=n - 1)]
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _model_dir(tmp_path_factory, base, dtype):
@@ -125,7 +119,7 @@ def _port_node(loop, model, params, **kw):
 
 
 def _jax_node(loop, model, params, **kw):
-    cfg = JaxEngineConfig(model=model, port=_free_port(), kv_events_port=0,
+    cfg = JaxEngineConfig(model=model, port=free_port(), kv_events_port=0,
                           kv_transfer="host", **{**COMMON, **kw})
     return Node(loop, JaxEngineServer(cfg, engine=TpuEngine(cfg, params=params)))
 
@@ -550,7 +544,7 @@ def test_sidecar_pipelined_and_serial_arms_in_front_of_port_engines(loop, nodes)
     # Pipelined first: its prefill must run cold to stream several chunks
     # (the serial arm then prefix-hits on the prefill engine).
     for arm, pipelined in (("pipelined", True), ("serial", False)):
-        sc = Sidecar(SidecarConfig(port=_free_port(),
+        sc = Sidecar(SidecarConfig(port=free_port(),
                                    decoder_url=f"http://127.0.0.1:{d.port}",
                                    ssrf_allowlist=[f"127.0.0.1:{p.port}"],
                                    pipeline_enabled=pipelined))

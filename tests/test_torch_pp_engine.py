@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine import EngineRequest as JaxRequest
 from llm_d_inference_scheduler_tpu.engine.core import TpuEngine
@@ -45,7 +46,7 @@ from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
 from llm_d_inference_scheduler_tpu_torch.engine.request import EngineRequest
 from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
 from llm_d_inference_scheduler_tpu_torch.parallel import serve as par
-from test_torch_parallel import PROMPT_A, PROMPT_B, PROMPT_C, _free_port, _Loop, _post, _tap
+from test_torch_parallel import PROMPT_A, PROMPT_B, PROMPT_C, _Loop, _post, _tap
 from test_torch_pp import TOL, f32, seeded_params
 
 COMMON = dict(max_batch=4, max_model_len=128, decode_chunk=4, prefill_chunk=32)
@@ -225,7 +226,7 @@ def test_kv_wire_between_pp_and_jax_engines(tmp_path_factory, pp, tp):
                                tp_size=tp if p > 1 else 1)
             servers[key] = EngineServer(cfg, engine=TorchEngine(cfg, params=full))
         for key in ("jdec", "jpre"):
-            jcfg = JaxEngineConfig(**common, port=_free_port(), kv_events_port=0,
+            jcfg = JaxEngineConfig(**common, port=free_port(), kv_events_port=0,
                                    kv_transfer="host")
             servers[key] = JaxEngineServer(jcfg, engine=TpuEngine(jcfg, params=jp))
         taps = {k: _tap(s.engine) for k, s in servers.items()}

@@ -27,7 +27,6 @@ import asyncio
 import dataclasses
 import http.client
 import json
-import socket
 import threading
 import time
 import urllib.error
@@ -37,6 +36,7 @@ import jax
 import numpy as np
 import pytest
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine import EngineRequest as JaxRequest
 from llm_d_inference_scheduler_tpu.engine.core import TpuEngine
@@ -53,12 +53,6 @@ from llm_d_inference_scheduler_tpu_torch.models.convert_jax import params_from_n
 
 PROMPT = [1] + list(range(50, 98))          # 49 tokens, 3 full blocks
 HALF = PROMPT[:17] + list(range(200, 232))  # shares PROMPT's first block only
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _request(port, path, body=None, headers=None, timeout=90):
@@ -111,7 +105,7 @@ def test_role_flag_reaches_health_as_on_the_jax_server(loop):
                                       "--kv-events-port=0", "--role=decode"])
     port_srv = EngineServer(cfg)
     jax_srv = JaxEngineServer(JaxEngineConfig(backend="sim", model="tiny",
-                                              port=_free_port(), role="decode"))
+                                              port=free_port(), role="decode"))
     for s in (port_srv, jax_srv):
         _run(loop, s.start())
     try:
@@ -237,13 +231,13 @@ def test_shared_storage_connector_in_front_of_port_engines(loop, f32):
                 for r in ("decode", "prefill"))]
         else:
             mk = [JaxEngineServer(c, engine=TpuEngine(c, params=jparams)) for c in (
-                JaxEngineConfig(**common, port=_free_port(), role=r,
+                JaxEngineConfig(**common, port=free_port(), role=r,
                                 kv_events_port=0, kv_transfer="host")
                 for r in ("decode", "prefill"))]
         for s in mk:
             _run(loop, s.start())
         dec, pre = mk
-        sc = Sidecar(SidecarConfig(port=_free_port(),
+        sc = Sidecar(SidecarConfig(port=free_port(),
                                    decoder_url=f"http://127.0.0.1:{_port_of(dec)}",
                                    connector="shared-storage", cache_hit_threshold=0.5))
         _run(loop, sc.start())
@@ -410,7 +404,7 @@ def deadline_pair(loop):
 
     port_srv.engine._decode_chunk = slow
     jax_srv = JaxEngineServer(JaxEngineConfig(backend="sim", model="tiny",
-                                              port=_free_port(),
+                                              port=free_port(),
                                               sim_decode_ms_per_token=20.0))
     for s in (port_srv, jax_srv):
         _run(loop, s.start())
@@ -501,7 +495,7 @@ def test_configured_engine_id_reaches_health_and_kv_events(loop):
         "port-sim": EngineServer(EngineConfig(backend="sim", model="tiny", port=0,
                                               engine_id="pod-a")),
         "jax-sim": JaxEngineServer(JaxEngineConfig(backend="sim", model="tiny",
-                                                   port=_free_port(), engine_id="pod-a")),
+                                                   port=free_port(), engine_id="pod-a")),
     }
     docs: dict[str, list[dict]] = {name: [] for name in servers}
     for name, srv in servers.items():

@@ -16,7 +16,6 @@ no subprocess.
 
 import asyncio
 import json
-import socket
 import threading
 import urllib.error
 import urllib.request
@@ -25,6 +24,7 @@ import httpx
 import numpy as np
 import pytest
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine.server import EngineServer as JaxEngineServer
 from llm_d_inference_scheduler_tpu.router.gateway import build_gateway
@@ -36,25 +36,6 @@ from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer
 from llm_d_inference_scheduler_tpu_torch.engine.sim import SimEngine
 from llm_d_inference_scheduler_tpu_torch.models.configs import TINY
 from llm_d_inference_scheduler_tpu_torch.models.vision import VIT_TINY
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _free_pair() -> int:
-    """A port p with p + 1 free too (the DP-rank listeners are consecutive)."""
-    for _ in range(50):
-        p = _free_port()
-        try:
-            with socket.socket() as s:
-                s.bind(("127.0.0.1", p + 1))
-            return p
-        except OSError:
-            continue
-    raise RuntimeError("no two consecutive free ports")
 
 
 @pytest.fixture(scope="module")
@@ -79,7 +60,7 @@ def _sim(loop, port=0, **kw):
 
 def _jax_sim(loop, port=None, **kw):
     srv = JaxEngineServer(JaxEngineConfig(backend="sim", model="tiny",
-                                          port=port or _free_port(), **kw))
+                                          port=port or free_port(), **kw))
     _run(loop, srv.start())
     return srv
 
@@ -159,7 +140,7 @@ def test_sidecar_chunked_decode_and_dp_ranks(loop):
     """``tests/test_e2e_disagg.py:287``: the sidecar's chunked decode
     reassembles the text over two port sims as DP ranks, and its rank-1
     listener reaches the second."""
-    dec, sc_port = _free_pair(), _free_pair()
+    dec, sc_port = free_port(span=2), free_port(span=2)
     e0, e1 = _sim(loop, port=dec), _sim(loop, port=dec + 1)
     sc = Sidecar(SidecarConfig(port=sc_port, decoder_url=f"http://127.0.0.1:{dec}",
                                decode_chunk_size=3, data_parallel_size=2))
@@ -226,7 +207,7 @@ def test_epd_encode_fanout(loop):
     """``tests/test_e2e_epd.py:52`` with port sims as the decode, prefill
     and encode pods behind the router's gateway and sidecar."""
     dec, pre, enc = (_sim(loop, role=r) for r in ("decode", "prefill", "encode"))
-    sc_port, gw_port = _free_port(), _free_port()
+    sc_port, gw_port = free_port(), free_port()
     sc = Sidecar(SidecarConfig(port=sc_port, decoder_url=f"http://127.0.0.1:{dec.port}",
                                ssrf_allowlist=[f"127.0.0.1:{pre.port}",
                                                f"127.0.0.1:{enc.port}"]))

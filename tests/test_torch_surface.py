@@ -13,7 +13,6 @@ f32 hidden-state comparisons (the two sum in other orders).
 import asyncio
 import dataclasses
 import json
-import socket
 import threading
 import time
 import urllib.error
@@ -23,6 +22,7 @@ import jax
 import numpy as np
 import pytest
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.engine import EngineConfig as JaxEngineConfig
 from llm_d_inference_scheduler_tpu.engine.core import TpuEngine
 from llm_d_inference_scheduler_tpu.engine.server import EngineServer as JaxEngineServer
@@ -38,12 +38,6 @@ from llm_d_inference_scheduler_tpu_torch.utils import tracing
 from llm_d_inference_scheduler_tpu_torch.utils.hashing import chain_block_hashes
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _request(port, path, body=None, headers=None, timeout=60, method=None):
@@ -109,7 +103,7 @@ def server(loop):
 
 @pytest.fixture(scope="module")
 def jax_sim(loop):
-    cfg = JaxEngineConfig(backend="sim", model="tiny", port=_free_port(),
+    cfg = JaxEngineConfig(backend="sim", model="tiny", port=free_port(),
                           kv_events_port=0)
     srv = _start(loop, JaxEngineServer(cfg))
     yield cfg.port
@@ -359,7 +353,7 @@ def test_router_precise_scorer_and_token_producer_over_port_engines(loop, monkey
 
             s._routes[key] = counted
     pods = [f"127.0.0.1:{s.port}" for s in servers]
-    gw_port = _free_port()
+    gw_port = free_port()
     cfg = f"""
 plugins:
   - {{type: token-producer}}

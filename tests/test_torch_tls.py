@@ -19,7 +19,6 @@ is):
 
 import asyncio
 import json
-import socket
 import ssl
 import threading
 import urllib.error
@@ -29,18 +28,13 @@ import uuid
 import numpy as np
 import pytest
 
+from _net import free_port
 from llm_d_inference_scheduler_tpu.router import tlsutil as jax_tls
 from llm_d_inference_scheduler_tpu.router.gateway import build_gateway
 from llm_d_inference_scheduler_tpu_torch.engine.server import EngineServer, parse_config
 from llm_d_inference_scheduler_tpu_torch.utils import tls
 
 PROMPT = [1] + list(range(40, 100))   # 61 tokens: 3 full blocks
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _cert_dir(path, cn="engine-one"):
@@ -258,7 +252,7 @@ def test_gateway_routes_to_tls_port_engine(loop):
     import httpx
 
     eng = _server(loop, ["--secure-serving"])
-    gw_port = _free_port()
+    gw_port = free_port()
     gw = build_gateway(f"""
 pool:
   endpoints:
