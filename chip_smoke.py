@@ -6,7 +6,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure exits non-zero):
   1. card      name and power limit from nvidia-smi
   2. build     nvcc builds every kernel of the serving paths from csrc/ (K1
-               paged decode attention, K2 grouped-expert FFN), in parallel
+               paged decode attention, K2 grouped-expert FFN, K3 prefill
+               attention), in parallel
   3. kernels   K1 (one launch; mma.sync in bf16) against its plain PyTorch
                version on the card, at llama3-8b shapes (and head_dim 64)
                and at one tp rank's heads (H/Hkv 16/4, 8/2, 4/1), and at
@@ -57,6 +58,14 @@ Phases (any failure exits non-zero):
                f32, with times of the kernel, the plain version and a
                per-expert cuBLAS yardstick at T=4 and T=1100; the routing
                glue under torch.cuda.set_sync_debug_mode("error")
+  6b. prefill attention  K3 against its plain version (f32 on the same
+               inputs) at the longprompt cell's windows (S 1024 over 0, 1024,
+               2048, 2976 prior columns; 32/8 and one tp=2 rank's 16/4, D
+               128) and ragged edges, bf16 and f32, each window timed with
+               its bound (visible columns' operations or the bytes), the
+               plain version and an SDPA yardstick; every serve phase's
+               prefills (whole, batched, after a prefix hit, embeddings)
+               must attend through K3's wgmma path once per layer
   7. moe decode  one Mixtral (16 of 32 layers) decode_step in bf16, grouped
                (K2) against dense on every lane, except a lane whose top-k
                routing differs between the two at a near-tie of its router
@@ -67,7 +76,10 @@ Phases (any failure exits non-zero):
                surface and eviction checks as phase 5; K1 and K2 counted,
                K2 by path (every prefill and decode step on wgmma; the
                embeddings n_layers wgmma launches per call); the grouped
-               embeddings held against an engine with the dense FFN
+               embeddings held against an engine with the dense FFN; 8b: a
+               4000-token prompt through the longprompt cell's prefill
+               settings (1024-token windows): K3 once per layer and window,
+               all on wgmma, each window's engine-side ms
   9. ckpt      converted HF checkpoints: an Orbax-shaped directory is
                refused; then, for Llama-3-8B (8 of 32 layers) and Mixtral-8x7B
                (2 of 32 layers, grouped_moe=True) at full width, an HF-layout
@@ -750,6 +762,12 @@ async def serve(cfg_model, params, card: str, *, tag: str = "serve",
     if grouped_moe.KERNEL in kernels and paths["wgmma"] < need_wgmma:
         fail(f"{tag}: the prefills and decode steps did not all go through "
              f"grouped_moe_ffn's wgmma path ({paths} < {need_wgmma})")
+    # Every request's prefill (whole or after a prefix hit) attends through
+    # K3 once per layer, on wgmma (the weights are bf16).
+    k3_paths = {p: launches[f"prefill_attention.{p}"] for p in ("wgmma", "simt")}
+    if k3_paths["wgmma"] < n_layers * len(results) or k3_paths["simt"]:
+        fail(f"{tag}: the prefills did not all attend through prefill_attention's "
+             f"wgmma path ({k3_paths}, want >= {n_layers * len(results)} on wgmma)")
     dec_s = after[0] - before[1]
     dec_tokens = after[1] - before[2] - len(results)
     ttft_mean = (after[2] - before[3]) / max(after[3] - before[4], 1)
@@ -1002,6 +1020,9 @@ async def check_surface(server, cfg_model, tag: str, card: str) -> dict:
     n = len(long_prompts)
     if launches["paged_decode_attention"] != 0:
         fail(f"{tag}: embeddings launched K1 ({launches})")
+    if launches["prefill_attention.wgmma"] != cfg_model.n_layers * n:
+        fail(f"{tag}: embeddings did not attend through K3 on wgmma n_layers times "
+             f"per call ({launches}, want {cfg_model.n_layers * n})")
     if cfg_model.n_experts and engine.mcfg.moe_impl == "grouped" and (
             launches[grouped_moe.KERNEL] != cfg_model.n_layers * n
             or paths["wgmma"] != cfg_model.n_layers * n):
@@ -1871,6 +1892,194 @@ def phase_moe_kernels(cfg) -> tuple[dict, dict]:
     pp_row = {**row, **{key: res[2][key] for key in ("ms", "plain_ms", "bound_ms",
                                                      "bound_by", "yardstick_ms")}}
     return row, pp_row
+
+
+# ---- phase 6b: prefill attention (K3) --------------------------------------
+
+# The longprompt cell's windows: 1024 new rows over 0-2976 prior columns, at
+# Mixtral's heads (32/8) and at one tp=2 rank's (16/4), D 128.
+K3_PRIORS = (0, 1024, 2048, 2976)
+K3_HEADS = [(32, 8), (16, 4)]
+# K3 against the plain version in f32 on the same bf16 inputs: the output
+# rounds once to bf16 (2**-8 of the value) and P rounds to bf16 before the
+# P.V product (at most 2**-9 * max|v|); 1e-5 for the order of sums. f32:
+# the order of sums only.
+K3_F32_TOL = 1e-5
+
+
+def prefill_case(gen, B, S, P, H, Hkv, D, dtype):
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(dtype)
+    lens = lambda n: torch.full((B,), n, dtype=torch.int32, device="cuda")
+    return dict(q=r(B, S, H, D), k=r(B, S, Hkv, D), v=r(B, S, Hkv, D),
+                k_prior=r(B, P, Hkv, D) if P else None, v_prior=r(B, P, Hkv, D) if P else None,
+                prior_len=lens(P) if P else None, new_len=lens(S))
+
+
+def check_prefill(name: str, case: dict) -> float:
+    """K3 against its plain version (f32, same inputs); fails beyond the
+    tolerance, else returns the max abs error."""
+    from llm_d_inference_scheduler_tpu_torch.ops import prefill_attention as k3
+
+    out = k3.prefill_attention(**case)
+    torch.cuda.synchronize()
+    f = {n: (t.float() if t is not None and t.is_floating_point() else t)
+         for n, t in case.items()}
+    ref = k3.prefill_attention_reference(f["q"], f["k"], f["v"], f["k_prior"], f["v_prior"],
+                                         f["prior_len"], f["new_len"])
+    err = (out.float() - ref).abs()
+    if out.dtype == torch.float32:
+        atol, rtol = K3_F32_TOL, K3_F32_TOL
+    else:
+        vmax = max(float(case[n].abs().max()) for n in ("v", "v_prior") if case[n] is not None)
+        atol, rtol = 2.0 ** -9 * vmax + 1e-5, 2.0 ** -8
+    ok = bool(torch.isfinite(out.float()).all()) and bool((err <= atol + rtol * ref.abs()).all())
+    max_err = float(err.max())
+    log(f"[prefill-attn] prefill_attention {name} {str(out.dtype)[6:]}: max_abs_err="
+        f"{max_err:.3e} (atol={atol:.2e}, rtol={rtol:.2e}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"prefill_attention disagrees with its plain version on {name} {out.dtype}")
+    return max_err
+
+
+def prefill_bound_ms(case) -> tuple[float, str, float]:
+    """Least time for the call's work: 4 * D flops per visible (row,
+    column) pair and q head (QK and PV), over the bf16 peak, against Q, K,
+    V, the prior K/V and O over HBM bandwidth; and the flops."""
+    q, kp = case["q"], case["k_prior"]
+    B, S, H, D = q.shape
+    Hkv = case["k"].shape[2]
+    P = 0 if kp is None else kp.shape[1]
+    isz = q.element_size()
+    pairs = B * (S * P + S * (S + 1) // 2)
+    flops = 4 * D * H * pairs
+    nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D + 2 * B * P * Hkv * D) * isz
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", flops
+
+
+def sdpa_prefill_yardstick(case):
+    """scaled_dot_product_attention on the same masked inputs, K/V heads
+    repeated and the two column parts joined before timing (the copies
+    excluded): causal (P = 0) or causal from the bottom right. A yardstick
+    only; the port never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    q, k, v = case["q"], case["k"], case["v"]
+    H, Hkv = q.shape[2], k.shape[2]
+    if case["k_prior"] is not None:
+        k = torch.cat([case["k_prior"], k], 1)
+        v = torch.cat([case["v_prior"], v], 1)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
+    S, T = qt.shape[2], kt.shape[2]
+    if S == T:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    bias = causal_lower_right(S, T)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+
+
+def phase_prefill_kernels() -> dict:
+    """K3 against its plain version on the cell's shapes and the ragged
+    edges, bf16 and f32; timed at each of the cell's windows (K3_PRIORS)
+    at both K3_HEADS; returns its kernels-line entry (ms, bound_ms,
+    plain_ms, library_ms at the cell's last window, P = 2976, 32/8) with
+    every timed shape under ``timed``."""
+    from llm_d_inference_scheduler_tpu_torch.ops import prefill_attention as k3
+    from llm_d_inference_scheduler_tpu_torch.tools.timing import device_ms, kernel_times
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for H, Hkv in K3_HEADS:
+            for P in K3_PRIORS:
+                err = check_prefill(f"H={H} Hkv={Hkv} S=1024 P={P}",
+                                    prefill_case(gen, 1, 1024, P, H, Hkv, 128, dtype))
+                worst = max(worst, err) if dtype == torch.bfloat16 else worst
+        # Ragged: a last window shorter than a tile, a prior part cut
+        # mid-tile, batched rows of other lengths.
+        c = prefill_case(gen, 3, 977, 1024, 32, 8, 128, dtype)
+        c["prior_len"] = torch.tensor([1024, 700, 0], dtype=torch.int32, device="cuda")
+        c["new_len"] = torch.tensor([977, 500, 1], dtype=torch.int32, device="cuda")
+        check_prefill("ragged B=3 S=977 P=1024", c)
+    timed = {}
+    for H, Hkv in K3_HEADS:
+        for P in K3_PRIORS:
+            case = prefill_case(gen, 1, 1024, P, H, Hkv, 128, torch.bfloat16)
+            kernel = lambda: k3.prefill_attention(**case)
+            plain = lambda: k3.prefill_attention_reference(*case.values())
+            a1, a1_wall, prof_ok = device_ms(kernel)
+            p1, _, _ = device_ms(plain, iters=5)
+            a2, a2_wall, _ = device_ms(kernel)
+            p2, _, _ = device_ms(plain, iters=5)
+            lib, _, _ = device_ms(sdpa_prefill_yardstick(case))
+            bound_ms, bound_by, flops = prefill_bound_ms(case)
+            ms = min(a1, a2)
+            src = "device time (profiler)" if prof_ok else "CUDA events (profiler saw no device time)"
+            log(f"[prefill-attn] timing H={H} Hkv={Hkv} S=1024 P={P} bf16, {src}: kernel "
+                f"{a1:.4f}/{a2:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s on the visible "
+                f"columns, {100 * bound_ms / ms:.1f} % of the bound), plain {p1:.4f}/{p2:.4f} "
+                f"ms (order kernel, plain, kernel, plain), sdpa yardstick {lib:.4f} ms, bound "
+                f"{bound_ms:.4f} ms by {bound_by}; wall per call by CUDA events, host launch "
+                f"included: kernel {a1_wall:.4f}/{a2_wall:.4f} ms")
+            if (H, P) == (32, 2976):
+                for kname, kms in kernel_times(kernel).items():
+                    log(f"[prefill-attn]   {kms * 1e3:9.2f} us  {kname[:100]}")
+            timed[f"{H}/{Hkv} P={P}"] = {"ms": ms, "plain_ms": min(p1, p2),
+                                         "bound_ms": bound_ms, "bound_by": bound_by,
+                                         "library_ms": lib}
+    last = timed["32/8 P=2976"]
+    return {"name": "prefill_attention", "route": "cuda",
+            "source": "llm_d_inference_scheduler_tpu_torch/csrc/prefill_attention.cu",
+            "replaces": None, "launches": None, "max_abs_err": worst, **last,
+            "timed": timed}
+
+
+async def check_prefill_windows(params, model_dir: str, n_layers: int, card: str) -> dict:
+    """8b: one prompt of the longprompt cell's longest length (4000 tokens)
+    through an engine with the cell's prefill settings (1024-token windows,
+    the grouped FFN): the first window whole, three over a prior part; K3
+    must launch once per layer and window, all on wgmma, and nothing else
+    of the prefill may attend. Returns K3's launches and the windows'
+    engine-side milliseconds."""
+    from llm_d_inference_scheduler_tpu_torch import ops
+    from llm_d_inference_scheduler_tpu_torch.engine.config import EngineConfig
+    from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
+    from llm_d_inference_scheduler_tpu_torch.engine.request import EngineRequest
+
+    n_tokens, window = 4000, 1024
+    cfg = EngineConfig(model=model_dir, served_model_name=MOE_SERVED, device="cuda",
+                       max_batch=4, max_model_len=4096, prefill_chunk=window,
+                       decode_chunk=8, grouped_moe=True, kv_events_port=0)
+    engine = TorchEngine(cfg, params=params)
+    windows: list[float] = []
+    timed(engine, "_run_prefill", windows, sync=True)
+    await engine.start()
+    try:
+        ops.reset_kernel_launches()
+        ids = torch.randint(1, 32_000, (n_tokens,), generator=torch.Generator().manual_seed(8))
+        out = engine.submit(EngineRequest(request_id="windows", prompt_token_ids=ids.tolist(),
+                                          max_tokens=1, temperature=0.0, ignore_eos=True))
+        while (await asyncio.wait_for(out.get(), timeout=300)).finish_reason is None:
+            pass
+        launches = ops.kernel_launches()
+    finally:
+        await engine.stop()
+    n_windows = -(-n_tokens // window)
+    want = n_layers * n_windows
+    ms = [round(c, 2) for _, c in windows]
+    log(f"[prefill-windows] {MOE_SERVED}, {card}: a {n_tokens}-token prompt in "
+        f"{n_windows} windows of {window} ({ms} ms each, engine side, synchronised); "
+        f"launches {launches}")
+    if (launches["prefill_attention"] != want or launches["prefill_attention.wgmma"] != want
+            or len(ms) != n_windows):
+        fail(f"prefill windows: K3 launched {launches}, want {want} = {n_layers} layers x "
+             f"{n_windows} windows, all on wgmma")
+    return {"launches": launches["prefill_attention"], "window_ms": ms}
 
 
 # ---- phase 7: Mixtral decode step, grouped against dense ------------------
@@ -4057,7 +4266,12 @@ def main() -> int:
     from llm_d_inference_scheduler_tpu_torch.engine.tokenizer import ByteTokenizer
     from llm_d_inference_scheduler_tpu_torch.models import llama
     from llm_d_inference_scheduler_tpu_torch.models.configs import get_config
-    from llm_d_inference_scheduler_tpu_torch.ops import _build, grouped_moe, paged_attention
+    from llm_d_inference_scheduler_tpu_torch.ops import (
+        _build,
+        grouped_moe,
+        paged_attention,
+        prefill_attention,
+    )
 
     t_start = time.monotonic()
     # 1. card
@@ -4068,7 +4282,7 @@ def main() -> int:
 
     # 2. build every kernel of the paths (one nvcc per source, in parallel)
     t0 = time.monotonic()
-    kernels = [paged_attention.KERNEL, grouped_moe.KERNEL]
+    kernels = [paged_attention.KERNEL, grouped_moe.KERNEL, prefill_attention.KERNEL]
     _build.build(kernels)
     log(f"[build] {', '.join(kernels)} built in {time.monotonic() - t0:.1f}s")
     for name in kernels:
@@ -4118,6 +4332,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 6b. K3 against its plain version at the longprompt cell's windows
+    with torch.no_grad():
+        k3 = phase_prefill_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 7. Mixtral (16 layers) decode step, grouped against dense
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.monotonic()
@@ -4145,6 +4365,7 @@ def main() -> int:
             f"and a subscriber {rates[True]}, with kv_events_port=0 {rates[False]}")
         asyncio.run(check_eviction(params, card, tag="moe-serve", **moe_kw))
         check_moe_embed_dense(moe["surface"], params, model_dir, card)
+        windows = asyncio.run(check_prefill_windows(params, model_dir, moe_cfg.n_layers, card))
     moe_launches, moe_paths = moe["launches"], moe["paths"]
     moe_embed = moe["surface"]
     del params
@@ -4161,6 +4382,17 @@ def main() -> int:
                {**k2, "path": f"{MOE_SERVED} embeddings",
                 "launches": moe_embed["launches"][grouped_moe.KERNEL],
                 "launches_by_path": moe_embed["paths"]}]
+    K3 = prefill_attention.KERNEL
+    k3_by_path = lambda counts: {p: counts[f"{K3}.{p}"] for p in ("wgmma", "simt")}
+    entries += [{**k3, "path": f"{MODEL} serve", "launches": dense_launches[K3],
+                 "launches_by_path": k3_by_path(dense_launches)},
+                {**k3, "path": f"{MOE_SERVED} serve", "launches": moe_launches[K3],
+                 "launches_by_path": k3_by_path(moe_launches)},
+                {**k3, "path": f"{MOE_SERVED} embeddings",
+                 "launches": moe_embed["launches"][K3],
+                 "launches_by_path": k3_by_path(moe_embed["launches"])},
+                {**k3, "path": f"{MOE_SERVED} prefill windows (4000 tokens, 4 x 1024)",
+                 "launches": windows["launches"]}]
     gc.collect()
     torch.cuda.empty_cache()
 

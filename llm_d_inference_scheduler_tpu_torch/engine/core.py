@@ -9,9 +9,10 @@ Port of ``TpuEngine`` (``llm_d_inference_scheduler_tpu/engine/core.py``):
 - Admission matches the prompt's complete blocks against the prefix cache
   (``PrefixCachingAllocator``), allocates the rest and prefills: a plain
   prompt through ``llama.forward`` + ``write_prefill_kv``, a cache hit
-  through ``llama.prefill_with_prefix`` over the cached prefix only; the
-  first token is sampled in the same dispatch and read back after the next
-  decode chunk has been queued.
+  through ``llama.prefill_with_prefix`` over the cached prefix only (both
+  attend through K3, ``ops/prefill_attention.py``); the first token is
+  sampled in the same dispatch and read back after the next decode chunk
+  has been queued.
 - Decode runs ``decode_chunk`` decode+sample steps back to back on the device
   over the active slots, compacted into a power-of-two batch bucket, with ONE
   host readback of the [K, B] sampled tokens per chunk. Padding lanes point
@@ -125,7 +126,7 @@ import numpy as np
 import torch
 
 from ..models import llama, vision
-from ..ops import _build, grouped_moe, paged_attention
+from ..ops import _build, grouped_moe, paged_attention, prefill_attention
 from ..ops.moe import check_tileable
 from ..parallel import pp_serve
 from ..parallel import serve as par
@@ -655,8 +656,8 @@ class TorchEngine:
                     self._abort_all()
 
     def _warmup(self):
-        """Build every CUDA kernel the model's paths launch (K1; K2 with the
-        grouped MoE FFN), then run each serving path once with all writes
+        """Build every CUDA kernel the model's paths launch (K1, K3; K2 with
+        the grouped MoE FFN), then run each serving path once with all writes
         on the trash block 0: a 16-token prefill; with ``prefill_batch``, a
         batched one; with ``prefill_chunk``, one window and one prefix
         continuation; one decode chunk at every
@@ -665,7 +666,7 @@ class TorchEngine:
         generator, so the outputs do not depend on the warm-up."""
         t0 = time.monotonic()
         if self.device.type == "cuda":
-            kernels = [paged_attention.KERNEL]
+            kernels = [paged_attention.KERNEL, prefill_attention.KERNEL]
             if self.mcfg.moe_impl == "grouped":
                 kernels.append(grouped_moe.KERNEL)
             _build.build(kernels)
@@ -2005,7 +2006,8 @@ class TorchEngine:
         lens_dev = self._to_dev(lens)
         hidden, (k_new, v_new) = llama.forward(self.params, self.mcfg,
                                                self._to_dev(tokens), want_kv=True,
-                                               want_hidden=True, **mm)
+                                               want_hidden=True,
+                                               attention_fn=prefill_attention.causal, **mm)
         llama.write_prefill_kv(self.k_pages, self.v_pages, k_new, v_new,
                                self._to_dev(rows), lens_dev)
         if hidden is None:
@@ -2028,7 +2030,7 @@ class TorchEngine:
     def _op_embed(self, ids):
         hidden, _ = llama.forward(self.params, self.mcfg,
                                   self._to_dev(np.asarray([ids], np.int32)),
-                                  want_hidden=True)
+                                  want_hidden=True, attention_fn=prefill_attention.causal)
         return None if hidden is None else hidden[0].mean(dim=0).cpu().numpy()
 
     def _op_import(self, blocks, k, v, dtype, shape):
@@ -2089,7 +2091,8 @@ class TorchEngine:
 
     def _op_logits(self, ids):
         logits, _ = llama.forward(self.params, self.mcfg,
-                                  self._to_dev(np.asarray([ids], np.int32)))
+                                  self._to_dev(np.asarray([ids], np.int32)),
+                                  attention_fn=prefill_attention.causal)
         return None if logits is None else logits[0, -1].float().cpu().numpy()
 
     def _op_kernel_check(self, atol, rtol, moe_rel, seed):

@@ -46,6 +46,7 @@ from ..ops.attention import causal_attention
 from ..ops.moe import moe_ffn_grouped, top_k_gates
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_decode_attention_cuda
+from ..ops.prefill_attention import prefill_attention
 from ..ops.rope import apply_rope, rope_table
 from ..parallel import serve as par
 from ..utils.device import resolve_device, torch_dtype
@@ -371,7 +372,8 @@ def forward(
     ``attention_fn`` (the JAX hook) computes each layer's attention, called
     once per tp rank on that rank's heads with ``causal_attention``'s
     keyword arguments: the sequence-parallel paths (``parallel/
-    ring_attention.py``, ``parallel/ulysses.py``) substitute theirs."""
+    ring_attention.py``, ``parallel/ulysses.py``) substitute theirs, and the
+    engine's serving prefills pass K3 (``ops/prefill_attention.causal``)."""
     m = _Model(params)
     B, S = tokens.shape
     if positions is None:
@@ -558,7 +560,9 @@ def prefill_with_prefix(
     """Prefill continuing from cached prefix KV (automatic prefix caching).
 
     The suffix attends to the cached prefix gathered from the pages plus
-    itself causally; its KV is written into the pages at prefix_len + t.
+    itself causally (K3, ``ops/prefill_attention.py``, with the gathered
+    prefix and the suffix as its two column parts; the plain version on the
+    CPU); its KV is written into the pages at prefix_len + t.
     With stages, each stage reads the prior KV of its layers from its own
     pages and writes its own (the JAX ``make_pp_prefill_with_prefix``).
     Returns (last-token logits [1, V] f32, k_pages, v_pages), pages updated
@@ -580,11 +584,7 @@ def prefill_with_prefix(
     t_idx = torch.arange(S, dtype=torch.int32, device=dev)
     positions = prefix_len[:, None].int() + t_idx[None, :]           # [1, S]
     cos, sin = rope_table(positions, Dh, cfg.rope_theta)
-    suffix_valid = t_idx[None, :] < suffix_len[:, None]
-    prior_pos = torch.arange(T, dtype=torch.int32, device=dev)[None, :]
-    prior_valid = prior_pos < prefix_len[:, None]
-    kv_positions = torch.cat([prior_pos, positions], dim=1)
-    kv_valid = torch.cat([prior_valid, suffix_valid], dim=1)
+    prior_len, new_len = prefix_len.int(), suffix_len.int()
     prior = prior_table_row[0].long()
     # Suffix KV goes to offset positions (padding -> trash block 0).
     tgt = prefix_len[0] + t_idx
@@ -601,25 +601,23 @@ def prefill_with_prefix(
         if not st.held:
             continue
         skp, svp = m.stage_pages(kps, s), m.stage_pages(vps, s)
-        per_tp = {t: tuple(a.to(skp[t].device) for a in (cos, sin, positions,
-                                                          kv_positions, kv_valid, prior))
+        per_tp = {t: tuple(a.to(skp[t].device) for a in (cos, sin, prior_len, new_len,
+                                                          prior))
                   for t in st.local_tp}
         k_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
         v_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
         x = x.to(st.dev)
         for li, lps in enumerate(st.layers):
             def attend(t, lp, xt):
-                c, s_, pos, kv_pos, ok, pr = per_tp[t]
+                c, s_, n_prior, n_new, pr = per_tp[t]
                 q, k, v = _qkv(cfg, lp, xt, c, s_)
                 Hkv = k.shape[2]
                 k_prior = skp[t][li][pr].reshape(1, T, Hkv, Dh)
                 v_prior = svp[t][li][pr].reshape(1, T, Hkv, Dh)
                 k_new[t].append(k[0])
                 v_new[t].append(v[0])
-                return causal_attention(q, torch.cat([k_prior, k], dim=1),
-                                        torch.cat([v_prior, v], dim=1),
-                                        q_positions=pos, kv_positions=kv_pos,
-                                        kv_valid=ok)
+                return prefill_attention(q, k, v, k_prior=k_prior, v_prior=v_prior,
+                                         prior_len=n_prior, new_len=n_new)
 
             x = st.layer(cfg, lps, x, attend)
         for t in st.local_tp:

@@ -10,6 +10,12 @@ The grouped MoE FFN (K2) rounds twice (act, then the output) and sums over
 D then F: f32 within 1e-4 of rms(plain), bf16 within 1e-2 |plain| + 1e-2
 rms(plain), the rms over the routed rows (an act value one bf16 step off
 moves the output by that step times a weight).
+The prefill attention (K3) is held against the plain version in f32 on the
+same bf16 inputs (products of two bf16 values are exact in f32): its output
+rounds once to bf16 (2**-8 of the value) and P rounds to bf16 before the
+P.V product, which moves an output by at most 2**-9 * max|v| (the sum of
+the rounding errors of weights that sum to one); 1e-5 more covers the order
+of the sums. Its f32 path differs only in the order of the sums: 1e-5.
 """
 
 import dataclasses
@@ -18,7 +24,13 @@ import pytest
 import torch
 
 from llm_d_inference_scheduler_tpu_torch.models import configs, llama
-from llm_d_inference_scheduler_tpu_torch.ops import attention, grouped_moe, moe, paged_attention
+from llm_d_inference_scheduler_tpu_torch.ops import (
+    attention,
+    grouped_moe,
+    moe,
+    paged_attention,
+    prefill_attention,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -297,3 +309,123 @@ def test_moe_decode_step_grouped_matches_dense(gpu):
     dense, _, _ = llama.decode_step(params, cfg, tokens, positions, kp.clone(), vp.clone(),
                                     tables)
     torch.testing.assert_close(grouped, dense, atol=1e-4, rtol=1e-4)
+
+
+# ---- K3: prefill attention ---------------------------------------------------
+
+
+def _prefill_case(gen, B, S, P, H, Hkv, D, dtype):
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(dtype)
+    prior = (r(B, P, Hkv, D), r(B, P, Hkv, D)) if P else (None, None)
+    return r(B, S, H, D), r(B, S, Hkv, D), r(B, S, Hkv, D), *prior
+
+
+def _check_prefill(args, prior_len=None, new_len=None, via_causal=False):
+    """K3 once (counted by path), against the plain version in f32 on the
+    same inputs, within the tolerance of the module's docstring."""
+    q, k, v, kp, vp = args
+    path = prefill_attention.kernel_path(q.dtype)
+    before = prefill_attention.launches, prefill_attention.path_launches[path]
+    if via_causal:
+        out = prefill_attention.causal(q, k, v)
+    else:
+        out = prefill_attention.prefill_attention(q, k, v, k_prior=kp, v_prior=vp,
+                                                  prior_len=prior_len, new_len=new_len)
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before[0] + 1
+    assert prefill_attention.path_launches[path] == before[1] + 1
+    f = lambda t: None if t is None else t.float()
+    ref = prefill_attention.prefill_attention_reference(
+        f(q), f(k), f(v), f(kp), f(vp), prior_len, new_len)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    if q.dtype == torch.float32:
+        atol, rtol = 1e-5, 1e-5
+    else:
+        vmax = max(float(t.abs().max()) for t in (v, vp) if t is not None)
+        atol, rtol = 2.0 ** -9 * vmax + 1e-5, 2.0 ** -8
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("P", [0, 1024, 2048, 2976])
+def test_prefill_attention_at_the_cell_shapes(gpu, P):
+    """Mixtral's 32/8 heads, D 128, a 1024-row window over P prior columns."""
+    lens = torch.tensor([P], dtype=torch.int32, device="cuda")
+    full = torch.tensor([1024], dtype=torch.int32, device="cuda")
+    _check_prefill(_prefill_case(gpu, 1, 1024, P, 32, 8, 128, torch.bfloat16),
+                   lens if P else None, full)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("P,prior_len,S,new_len", [
+    (1024, 1024, 977, 900),   # ragged window, new_len < S
+    (2048, 1500, 1024, 1024),  # prior_len < P, mid-tile
+    (256, 0, 130, 1),          # no prior visible, one new column
+    (0, 0, 977, 977),
+])
+def test_prefill_attention_ragged_edges(gpu, P, prior_len, S, new_len, dtype):
+    lens = lambda n: torch.tensor([n], dtype=torch.int32, device="cuda")
+    _check_prefill(_prefill_case(gpu, 1, S, P, 32, 8, 128, dtype),
+                   lens(prior_len) if P else None, lens(new_len))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_attention_batched_with_trailing_padding(gpu, dtype):
+    """Batched prefill: B = 4 rows of one length, padding at the end hidden
+    by causality alone (the engine's form), and per-row lengths with
+    per-row prior parts."""
+    _check_prefill(_prefill_case(gpu, 4, 600, 0, 32, 8, 128, dtype), via_causal=True)
+    i32 = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")
+    _check_prefill(_prefill_case(gpu, 4, 600, 384, 32, 8, 128, dtype),
+                   i32([384, 200, 0, 129]), i32([600, 431, 77, 1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,Hkv,D", [(16, 4, 128), (4, 1, 128), (4, 2, 32), (4, 2, 48),
+                                     (8, 8, 64), (4, 2, 24)])
+def test_prefill_attention_heads_and_head_dims(gpu, H, Hkv, D, dtype):
+    """tp ranks' heads (16/4, 4/1), the tiny models' head dims (32, 48)
+    and others the kernel pads (64, 24), with a prior part."""
+    i32 = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")
+    _check_prefill(_prefill_case(gpu, 2, 300, 256, H, Hkv, D, dtype),
+                   i32([256, 100]), i32([300, 250]))
+
+
+def test_prefill_attention_refusals_on_cuda(gpu):
+    q, k, v, _, _ = _prefill_case(gpu, 1, 64, 0, 4, 2, 32, torch.bfloat16)
+    with pytest.raises(ValueError, match="padding mask"):
+        prefill_attention.causal(q, k, v, kv_valid=torch.ones(1, 64, dtype=torch.bool,
+                                                               device="cuda"))
+    with pytest.raises(ValueError, match="int32"):
+        prefill_attention.prefill_attention(q, k, v, new_len=torch.tensor([64], device="cuda"))
+    with pytest.raises(ValueError, match="dtype"):
+        prefill_attention.prefill_attention(q, k.float(), v)
+
+
+@pytest.mark.parametrize("name", ["tiny", "tiny-qwen", "tiny-moe"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_forward_and_prefix_through_k3(gpu, name, dtype):
+    """The serving forms on the card: a 32-token forward with K3 as its
+    attention_fn writes its KV into pages, a 16-token prefix continuation
+    attends over them through K3; its last logits against the plain
+    forward over all 48 tokens (f32: the order of sums; bf16: 5 % of the
+    largest logit, the rounding of 2 layers' attention outputs)."""
+    cfg = dataclasses.replace(configs.get_config(name), dtype=dtype)
+    params = llama.init_params(cfg, "cuda", generator=gpu)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 48), generator=gpu, device="cuda")
+    block = cfg.kv_block_size
+    shape = (cfg.n_layers, 1 + 64 // block, block, cfg.n_kv_heads, cfg.head_dim)
+    kp = torch.zeros(shape, dtype=params["embed"].dtype, device="cuda")
+    vp = torch.zeros_like(kp)
+    row = torch.arange(1, 1 + 64 // block, dtype=torch.int32, device="cuda")[None]
+    i32 = lambda n: torch.tensor([n], dtype=torch.int32, device="cuda")
+    before = prefill_attention.launches
+    _, (kn, vn) = llama.forward(params, cfg, prompt[:, :32], want_kv=True,
+                                attention_fn=prefill_attention.causal)
+    llama.write_prefill_kv(kp, vp, kn, vn, row, i32(32))
+    kern, _, _ = llama.prefill_with_prefix(params, cfg, prompt[:, 32:], i32(16), i32(32),
+                                           kp, vp, row, row[:, :32 // block])
+    assert prefill_attention.launches == before + 2 * cfg.n_layers
+    plain, _ = llama.forward(params, cfg, prompt)
+    plain = plain[:, -1]
+    tol = 1e-4 if dtype == "float32" else 5e-2 * float(plain.abs().max())
+    torch.testing.assert_close(kern, plain, atol=tol, rtol=1e-4 if dtype == "float32" else 0)
