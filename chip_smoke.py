@@ -1896,10 +1896,10 @@ def phase_moe_kernels(cfg) -> tuple[dict, dict]:
 
 # ---- phase 6b: prefill attention (K3) --------------------------------------
 
-# The longprompt cell's windows: 1024 new rows over 0-2976 prior columns, at
-# Mixtral's heads (32/8) and at one tp=2 rank's (16/4), D 128.
+# The longprompt cells' windows: 1024 new rows over 0-2976 prior columns, at
+# Mixtral's heads (32/8), one tp=2 rank's (16/4) and Qwen3-32B's (64/8), D 128.
 K3_PRIORS = (0, 1024, 2048, 2976)
-K3_HEADS = [(32, 8), (16, 4)]
+K3_HEADS = [(32, 8), (16, 4), (64, 8)]
 # K3 against the plain version in f32 on the same bf16 inputs: the output
 # rounds once to bf16 (2**-8 of the value) and P rounds to bf16 before the
 # P.V product (at most 2**-9 * max|v|); 1e-5 for the order of sums. f32:
@@ -1984,7 +1984,7 @@ def sdpa_prefill_yardstick(case):
 def phase_prefill_kernels() -> dict:
     """K3 against its plain version on the cell's shapes and the ragged
     edges, bf16 and f32; timed at each of the cell's windows (K3_PRIORS)
-    at both K3_HEADS; returns its kernels-line entry (ms, bound_ms,
+    at each of K3_HEADS; returns its kernels-line entry (ms, bound_ms,
     plain_ms, library_ms at the cell's last window, P = 2976, 32/8) with
     every timed shape under ``timed``."""
     from llm_d_inference_scheduler_tpu_torch.ops import prefill_attention as k3

@@ -346,12 +346,15 @@ def _check_prefill(args, prior_len=None, new_len=None, via_causal=False):
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("H,Hkv", [(32, 8), (64, 8)])
 @pytest.mark.parametrize("P", [0, 1024, 2048, 2976])
-def test_prefill_attention_at_the_cell_shapes(gpu, P):
-    """Mixtral's 32/8 heads, D 128, a 1024-row window over P prior columns."""
+def test_prefill_attention_at_the_cell_shapes(gpu, P, H, Hkv):
+    """The longprompt cells' heads, D 128: Mixtral's 32/8 and Qwen3-32B's
+    64/8 (8 query heads a KV head), a 1024-row window over P prior
+    columns."""
     lens = torch.tensor([P], dtype=torch.int32, device="cuda")
     full = torch.tensor([1024], dtype=torch.int32, device="cuda")
-    _check_prefill(_prefill_case(gpu, 1, 1024, P, 32, 8, 128, torch.bfloat16),
+    _check_prefill(_prefill_case(gpu, 1, 1024, P, H, Hkv, 128, torch.bfloat16),
                    lens if P else None, full)
 
 

@@ -14,6 +14,8 @@ on the CPU, where its wrapper computes the plain version.
   prefill, the prefix continuation of chunked prefill, embeddings, the
   logits diagnostic) do; training, ring attention, Ulysses and the GPipe
   forward keep ``causal_attention`` and never reach K3.
+- The least times ``chip_smoke.py`` phase 6b sets beside K3's timings at
+  the longprompt cells' windows (32/8, 16/4 and 64/8 heads).
 The kernel itself is held to the plain version on the card
 (``tests/test_torch_kernels_cuda.py``).
 """
@@ -236,3 +238,23 @@ def test_training_paths_keep_causal_attention(path, monkeypatch):
     else:
         out = ring_attention.make_ring_attention_fn(layout)(q, k, v)
     np.testing.assert_allclose(out.numpy(), attention.causal_attention(q, k, v).numpy(), **TOL)
+
+
+# 1024-row windows over P prior columns, D 128, bf16: ms by the operations
+# bound (4 * D per visible pair and q head at 989 TFLOP/s); 64/8 does twice
+# 32/8's work, 16/4 half.
+@pytest.mark.parametrize("H,Hkv,P,ms", [
+    (32, 8, 0, 0.0087), (32, 8, 1024, 0.0261), (32, 8, 2048, 0.0434), (32, 8, 2976, 0.0592),
+    (16, 4, 0, 0.0043), (16, 4, 1024, 0.0130), (16, 4, 2048, 0.0217), (16, 4, 2976, 0.0296),
+    (64, 8, 0, 0.0174), (64, 8, 1024, 0.0521), (64, 8, 2048, 0.0869), (64, 8, 2976, 0.1184),
+])
+def test_phase_6b_bounds_at_the_cell_windows(H, Hkv, P, ms):
+    import chip_smoke
+
+    m = lambda *sh: torch.empty(*sh, dtype=torch.bfloat16, device="meta")
+    case = dict(q=m(1, 1024, H, 128), k=m(1, 1024, Hkv, 128), v=m(1, 1024, Hkv, 128),
+                k_prior=m(1, P, Hkv, 128) if P else None)
+    bound_ms, bound_by, flops = chip_smoke.prefill_bound_ms(case)
+    assert flops == 4 * 128 * H * (1024 * P + 1024 * 1025 // 2)
+    assert bound_by == "operations"
+    assert bound_ms == pytest.approx(ms, abs=5e-5)
