@@ -7,7 +7,7 @@ Phases (any failure exits non-zero):
   1. card      name and power limit from nvidia-smi
   2. build     nvcc builds every kernel of the serving paths from csrc/ (K1
                paged decode attention, K2 grouped-expert FFN, K3 prefill
-               attention), in parallel
+               attention, K4 RMSNorm / QK-norm / RoPE), in parallel
   3. kernels   K1 (one launch; mma.sync in bf16) against its plain PyTorch
                version on the card, at llama3-8b shapes (and head_dim 64)
                and at one tp rank's heads (H/Hkv 16/4, 8/2, 4/1), and at
@@ -66,6 +66,11 @@ Phases (any failure exits non-zero):
                plain version and an SDPA yardstick; every serve phase's
                prefills (whole, batched, after a prefix hit, embeddings)
                must attend through K3's wgmma path once per layer
+  6c. norms    K4 (rms_norm, its residual form, qk_norm_rope) against the
+               eager chain at Qwen3-32B's and Mixtral's 1024-token windows
+               and a decode batch of 4, bf16 and f32; each timed (bf16,
+               order kernel, eager, kernel, eager) beside its bytes bound at
+               3.35 TB/s, rms_norm also beside F.rms_norm as a yardstick
   7. moe decode  one Mixtral (16 of 32 layers) decode_step in bf16, grouped
                (K2) against dense on every lane, except a lane whose top-k
                routing differs between the two at a near-tie of its router
@@ -79,7 +84,10 @@ Phases (any failure exits non-zero):
                embeddings held against an engine with the dense FFN; 8b: a
                4000-token prompt through the longprompt cell's prefill
                settings (1024-token windows): K3 once per layer and window,
-               all on wgmma, each window's engine-side ms
+               all on wgmma, K4 3 x 16 + 1 = 49 times a window, each
+               window's engine-side ms; 8c: the same on Qwen3-32B whole (64
+               layers, dense FFN, 65.5 GB; a 2048-token prompt, two
+               windows): K3 64 and K4 3 x 64 + 1 = 193 times a window
   9. ckpt      converted HF checkpoints: an Orbax-shaped directory is
                refused; then, for Llama-3-8B (8 of 32 layers) and Mixtral-8x7B
                (2 of 32 layers, grouped_moe=True) at full width, an HF-layout
@@ -165,7 +173,8 @@ Phases (any failure exits non-zero):
                (sp 2 and 4) against causal_attention at llama3-8b's heads
                32/8, D 128, S 2048, f32 and bf16, and ring's input gradients;
                14d the GPipe forward (4 layers) at pp=2 with M=2 and pp=4
-               with M=4 against forward, f32 and bf16; no K1 or K2 launch
+               with M=4 against forward, f32 and bf16; no K1, K2 or K3
+               launch, and no K4 launch in the train steps
 The lines before the last carry the card's name and power limit and a JSON
 object listing each kernel once for every serving path that launches it
 (the P/D decode engine's K1 launches as path "llama3-8b P/D decode", the
@@ -260,6 +269,7 @@ PP_HEADS = [(64, 8), (32, 4)]
 MOE_MODEL = "mixtral-8x7b"
 MOE_LAYERS = 16   # of 32: 93.4 GB in bf16 do not fit in 80 GB; 16 take 47 GB
 MOE_SERVED = "mixtral-8x7b-16l"
+QWEN3 = "qwen3-32b"
 
 
 def log(msg: str) -> None:
@@ -2039,29 +2049,185 @@ def phase_prefill_kernels() -> dict:
             "timed": timed}
 
 
-async def check_prefill_windows(params, model_dir: str, n_layers: int, card: str) -> dict:
+# ---- phase 6c: K4, the served layer's RMSNorm, QK-norm and RoPE ----------
+
+# (name, tokens, width, Hq, Hk, head_dim, QK-norm): the longprompt cells'
+# 1024-token windows and a decode batch of 4, θ 1e6 (both models').
+K4_SHAPES = [
+    ("qwen3-32b window", 1024, 5120, 64, 8, 128, True),
+    ("mixtral window", 1024, 4096, 32, 8, 128, False),
+    ("qwen3-32b decode B=4", 4, 5120, 64, 8, 128, True),
+    ("mixtral decode B=4", 4, 4096, 32, 8, 128, False),
+]
+K4_THETA = 1e6
+K4_EPS = 1e-6
+
+
+def norm_bytes(T: int, width: int, Hq: int, Hk: int, D: int, qk_norm: bool,
+               isz: int) -> dict[str, int]:
+    """Bytes each K4 entry must move at a shape (each input read once, each
+    output written once): rms_norm the rows in and out and the weight; its
+    residual form two rows in and two out; qk_norm_rope q and k in and out,
+    the tokens' cos/sin (f32) and, with QK-norm, the two norm weights."""
+    return {"rms_norm": (2 * T * width + width) * isz,
+            "rms_norm+residual": (4 * T * width + width) * isz,
+            "qk_norm_rope": (2 * T * (Hq + Hk) * D * isz + 2 * T * (D // 2) * 4
+                             + (2 * D * isz if qk_norm else 0))}
+
+
+def norm_case(gen, T: int, width: int, Hq: int, Hk: int, D: int, qk_norm: bool, dtype) -> dict:
+    from llm_d_inference_scheduler_tpu_torch.ops.rope import rope_table
+
+    r = lambda *sh: torch.randn(*sh, generator=gen, device="cuda").to(dtype)
+    w = lambda n: (1 + 0.1 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
+    pos = torch.randint(0, 4096, (T,), generator=gen, device="cuda")
+    cos, sin = rope_table(pos, D, K4_THETA)
+    return dict(x=3 * r(T, width), res=r(T, width), w=w(width), q=r(T, Hq, D), k=r(T, Hk, D),
+                cos=cos, sin=sin, qn=w(D) if qk_norm else None, kn=w(D) if qk_norm else None)
+
+
+def check_norms(name: str, c: dict) -> float:
+    """K4's three forms against the eager chain on the same inputs, within
+    the tolerances of tests/test_torch_kernels_cuda.py (RoPE alone and the
+    residual sum bit-equal; a norm within one bf16 step, or rtol 1e-5 in
+    f32; QK-norm then RoPE within 2**-6 of the largest output); fails
+    beyond them, else returns the largest abs difference."""
+    from llm_d_inference_scheduler_tpu_torch.ops import fused_norm as k4
+
+    got = {"rms_norm": k4.rms_norm(c["x"], c["w"], K4_EPS),
+           "rms_norm+residual": k4.rms_norm(c["x"], c["w"], K4_EPS, residual=c["res"]),
+           "qk_norm_rope": k4.qk_norm_rope(c["q"], c["k"], c["cos"], c["sin"], c["qn"], c["kn"],
+                                           K4_EPS)}
+    torch.cuda.synchronize()
+    want = {"rms_norm": k4.rms_norm_reference(c["x"], c["w"], K4_EPS),
+            "rms_norm+residual": k4.rms_norm_reference(c["x"], c["w"], K4_EPS,
+                                                       residual=c["res"]),
+            "qk_norm_rope": k4.qk_norm_rope_reference(c["q"], c["k"], c["cos"], c["sin"],
+                                                      c["qn"], c["kn"], K4_EPS)}
+    f32 = c["x"].dtype == torch.float32
+    worst = 0.0
+    for form in got:
+        pairs = list(zip(got[form], want[form])) if form != "rms_norm" else [
+            (got[form], want[form])]
+        for i, (g, w_) in enumerate(pairs):
+            err = float((g.float() - w_.float()).abs().max())
+            exact = (form == "rms_norm+residual" and i == 0) or (
+                form == "qk_norm_rope" and c["qn"] is None)
+            if exact:
+                ok = torch.equal(g, w_)
+            elif form == "qk_norm_rope":
+                top = float(w_.abs().max())
+                atol, rtol = (1e-5 * top, 1e-5) if f32 else (2.0 ** -6 * top, 2.0 ** -7)
+                ok = bool(((g.float() - w_.float()).abs() <= atol + rtol * w_.float().abs()).all())
+            else:
+                atol, rtol = (1e-6, 1e-5) if f32 else (1e-6, 2.0 ** -7)
+                ok = bool(((g.float() - w_.float()).abs() <= atol + rtol * w_.float().abs()).all())
+            worst = max(worst, err)
+            log(f"[norms] {form} {name} {str(g.dtype)[6:]} out {i}: max_abs_err={err:.3e} "
+                f"{'(bit-equal required) ' if exact else ''}{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"fused_norm_rope {form} disagrees with the eager chain on {name} "
+                     f"{g.dtype}")
+    return worst
+
+
+def phase_norm_kernels() -> dict:
+    """K4 against the eager chain at K4_SHAPES, bf16 and f32; each entry
+    timed in bf16 (kernel, eager, kernel, eager) beside its bytes bound and,
+    for rms_norm, F.rms_norm (a yardstick the port never calls). Returns
+    K4's kernels-line entry (qk_norm_rope at Qwen3-32B's window) with every
+    timed shape and form under ``timed``."""
+    import torch.nn.functional as F
+
+    from llm_d_inference_scheduler_tpu_torch.ops import fused_norm as k4
+    from llm_d_inference_scheduler_tpu_torch.tools.timing import device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, *shape in K4_SHAPES:
+            err = check_norms(name, norm_case(gen, *shape, dtype=dtype))
+            worst = max(worst, err) if dtype == torch.bfloat16 else worst
+    timed = {}
+    for name, T, width, Hq, Hk, D, qk_norm in K4_SHAPES:
+        nbytes = norm_bytes(T, width, Hq, Hk, D, qk_norm, 2)
+        # Each call takes the next of enough cases to hold three times the
+        # 50 MB L2, so every call reads its inputs from HBM (12 at the
+        # decode shapes, where launch latency rules anyway).
+        cases = [norm_case(gen, T, width, Hq, Hk, D, qk_norm, torch.bfloat16)
+                 for _ in range(min(12, max(2, -(-150_000_000 // nbytes["rms_norm"]))))]
+        turn = iter(range(1 << 62))
+        nxt = lambda: cases[next(turn) % len(cases)]
+        forms = {
+            "rms_norm": (lambda c: k4.rms_norm(c["x"], c["w"], K4_EPS),
+                         lambda c: k4.rms_norm_reference(c["x"], c["w"], K4_EPS),
+                         lambda c: F.rms_norm(c["x"], (width,), c["w"], K4_EPS)),
+            "rms_norm+residual": (
+                lambda c: k4.rms_norm(c["x"], c["w"], K4_EPS, residual=c["res"]),
+                lambda c: k4.rms_norm_reference(c["x"], c["w"], K4_EPS, residual=c["res"]),
+                None),
+            "qk_norm_rope": (
+                lambda c: k4.qk_norm_rope(c["q"], c["k"], c["cos"], c["sin"], c["qn"], c["kn"],
+                                          K4_EPS),
+                lambda c: k4.qk_norm_rope_reference(c["q"], c["k"], c["cos"], c["sin"],
+                                                    c["qn"], c["kn"], K4_EPS),
+                None),
+        }
+        for form, fns in forms.items():
+            kernel, plain, library = (None if f is None else (lambda f=f: f(nxt()))
+                                      for f in fns)
+            a1, a1_wall, prof_ok = device_ms(kernel)
+            p1, _, _ = device_ms(plain)
+            a2, a2_wall, _ = device_ms(kernel)
+            p2, _, _ = device_ms(plain)
+            lib = device_ms(library)[0] if library is not None else None
+            ms = min(a1, a2)
+            bound_ms = nbytes[form] / HBM_BYTES_PER_S * 1e3
+            src = "device time (profiler)" if prof_ok else "CUDA events (profiler saw no device time)"
+            log(f"[norms] timing {form} {name} bf16, {src}: kernel {a1:.4f}/{a2:.4f} ms "
+                f"({nbytes[form] / ms / 1e6:.0f} GB/s, {100 * bound_ms / ms:.1f} % of the "
+                f"bound), eager {p1:.4f}/{p2:.4f} ms (order kernel, eager, kernel, eager), "
+                f"bound {bound_ms:.4f} ms by bytes ({nbytes[form] / 1e6:.2f} MB)"
+                + (f", F.rms_norm yardstick {lib:.4f} ms" if lib is not None else "")
+                + f"; wall per call by CUDA events, host launch included: kernel "
+                f"{a1_wall:.4f}/{a2_wall:.4f} ms")
+            timed[f"{form} {name}"] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": bound_ms,
+                                       "bound_by": "bytes", "library_ms": lib}
+    return {"name": "fused_norm_rope", "route": "cuda",
+            "source": "llm_d_inference_scheduler_tpu_torch/csrc/fused_norm_rope.cu",
+            "replaces": None, "launches": None, "max_abs_err": worst,
+            **timed["qk_norm_rope qwen3-32b window"], "timed": timed}
+
+
+async def check_prefill_windows(params, model_dir: str, n_layers: int, card: str, *,
+                                served: str = MOE_SERVED, grouped: bool = True,
+                                n_tokens: int = 4000, vocab: int = 32_000) -> dict:
     """8b: one prompt of the longprompt cell's longest length (4000 tokens)
     through an engine with the cell's prefill settings (1024-token windows,
     the grouped FFN): the first window whole, three over a prior part; K3
     must launch once per layer and window, all on wgmma, and nothing else
-    of the prefill may attend. Returns K3's launches and the windows'
-    engine-side milliseconds."""
+    of the prefill may attend; K4 3 x n_layers + 1 times a window (each
+    layer's attention norm, QK-norm and RoPE, residual add and MLP norm;
+    the final norm). 8c calls it on Qwen3-32B (``served``, dense FFN).
+    Returns K3's and K4's launches and the windows' engine-side
+    milliseconds."""
     from llm_d_inference_scheduler_tpu_torch import ops
     from llm_d_inference_scheduler_tpu_torch.engine.config import EngineConfig
     from llm_d_inference_scheduler_tpu_torch.engine.core import TorchEngine
     from llm_d_inference_scheduler_tpu_torch.engine.request import EngineRequest
+    from llm_d_inference_scheduler_tpu_torch.ops import fused_norm
 
-    n_tokens, window = 4000, 1024
-    cfg = EngineConfig(model=model_dir, served_model_name=MOE_SERVED, device="cuda",
+    window = 1024
+    cfg = EngineConfig(model=model_dir, served_model_name=served, device="cuda",
                        max_batch=4, max_model_len=4096, prefill_chunk=window,
-                       decode_chunk=8, grouped_moe=True, kv_events_port=0)
+                       decode_chunk=8, grouped_moe=grouped, kv_events_port=0)
     engine = TorchEngine(cfg, params=params)
     windows: list[float] = []
     timed(engine, "_run_prefill", windows, sync=True)
     await engine.start()
     try:
         ops.reset_kernel_launches()
-        ids = torch.randint(1, 32_000, (n_tokens,), generator=torch.Generator().manual_seed(8))
+        ids = torch.randint(1, vocab, (n_tokens,), generator=torch.Generator().manual_seed(8))
         out = engine.submit(EngineRequest(request_id="windows", prompt_token_ids=ids.tolist(),
                                           max_tokens=1, temperature=0.0, ignore_eos=True))
         while (await asyncio.wait_for(out.get(), timeout=300)).finish_reason is None:
@@ -2071,15 +2237,46 @@ async def check_prefill_windows(params, model_dir: str, n_layers: int, card: str
         await engine.stop()
     n_windows = -(-n_tokens // window)
     want = n_layers * n_windows
+    k4_want = (3 * n_layers + 1) * n_windows
     ms = [round(c, 2) for _, c in windows]
-    log(f"[prefill-windows] {MOE_SERVED}, {card}: a {n_tokens}-token prompt in "
+    log(f"[prefill-windows] {served}, {card}: a {n_tokens}-token prompt in "
         f"{n_windows} windows of {window} ({ms} ms each, engine side, synchronised); "
         f"launches {launches}")
     if (launches["prefill_attention"] != want or launches["prefill_attention.wgmma"] != want
             or len(ms) != n_windows):
         fail(f"prefill windows: K3 launched {launches}, want {want} = {n_layers} layers x "
              f"{n_windows} windows, all on wgmma")
-    return {"launches": launches["prefill_attention"], "window_ms": ms}
+    K4 = fused_norm.KERNEL
+    if (launches[K4] != k4_want or launches[f"{K4}.qk_norm_rope"] != want
+            or launches[f"{K4}.rms_norm"] != (2 * n_layers + 1) * n_windows):
+        fail(f"prefill windows: K4 launched {launches}, want {k4_want} = (3 x {n_layers} + 1) "
+             f"x {n_windows} windows")
+    return {"launches": launches["prefill_attention"], "k4_launches": launches[K4],
+            "window_ms": ms}
+
+
+def phase_qwen3_windows(card: str) -> dict:
+    """8c: Qwen3-32B whole (64 layers, dense FFN, random bf16 weights, 65.5
+    GB) through 8b's check with a 2048-token prompt (two windows): K3 64
+    and K4 193 launches a window."""
+    from llm_d_inference_scheduler_tpu_torch.models import llama
+    from llm_d_inference_scheduler_tpu_torch.models.configs import get_config
+
+    cfg = get_config(QWEN3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.monotonic()
+    params = llama.init_params(cfg, "cuda", "bfloat16", gen)
+    torch.cuda.synchronize()
+    log(f"[prefill-windows] random {QWEN3} weights drawn on the card in "
+        f"{time.monotonic() - t0:.1f}s")
+    try:
+        return asyncio.run(check_prefill_windows(params, QWEN3, cfg.n_layers, card,
+                                                 served=QWEN3, grouped=False,
+                                                 n_tokens=2048, vocab=cfg.vocab_size))
+    finally:
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ---- phase 7: Mixtral decode step, grouped against dense ------------------
@@ -4102,10 +4299,12 @@ def phase_train(card: str) -> dict:
     at dp=2 (every rank on the one card) against the tp=1 step; 14c ring
     attention and Ulysses against causal_attention at llama3-8b's heads
     (and ring's input gradients); 14d the GPipe forward at pp=2 (M=2) and
-    pp=4 (M=4) against forward. No K1 or K2 launch."""
+    pp=4 (M=4) against forward. No K1, K2 or K3 launch; no K4 launch in the
+    train steps (14a, 14b)."""
     from llm_d_inference_scheduler_tpu_torch import ops
     from llm_d_inference_scheduler_tpu_torch.models import llama
     from llm_d_inference_scheduler_tpu_torch.models.configs import get_config
+    from llm_d_inference_scheduler_tpu_torch.ops import fused_norm
     from llm_d_inference_scheduler_tpu_torch.ops.attention import causal_attention
     from llm_d_inference_scheduler_tpu_torch.parallel import pipeline
     from llm_d_inference_scheduler_tpu_torch.parallel.ring_attention import ring_attention
@@ -4148,6 +4347,9 @@ def phase_train(card: str) -> dict:
     del ref, params
     gc.collect()
     log(f"[train] 14b in {time.monotonic() - t0:.1f}s")
+    # The train steps need every norm's backward: K4 must not have run.
+    if ops.kernel_launches()[fused_norm.KERNEL]:
+        fail(f"train: a train step launched K4: {ops.kernel_launches()}")
 
     # 14c: ring attention and Ulysses at llama3-8b's heads against
     # causal_attention, and ring's input gradients (f32).
@@ -4224,9 +4426,10 @@ def phase_train(card: str) -> dict:
 
     launches = ops.kernel_launches()
     log(f"[train] {card}: phase 14 in {time.monotonic() - t_phase:.1f}s; kernel "
-        f"launches {launches} (the train path runs no TPU-kernel counterpart)")
-    if any(launches.values()):
-        fail(f"train: the train path launched K1 or K2: {launches}")
+        f"launches {launches} (the train path runs no TPU-kernel counterpart; K4 only "
+        f"in 14d's forwards, which need no gradient)")
+    if any(n for name, n in launches.items() if not name.startswith(fused_norm.KERNEL)):
+        fail(f"train: the train path launched K1, K2 or K3: {launches}")
     out["launches"] = launches
     return out
 
@@ -4268,6 +4471,7 @@ def main() -> int:
     from llm_d_inference_scheduler_tpu_torch.models.configs import get_config
     from llm_d_inference_scheduler_tpu_torch.ops import (
         _build,
+        fused_norm,
         grouped_moe,
         paged_attention,
         prefill_attention,
@@ -4282,7 +4486,8 @@ def main() -> int:
 
     # 2. build every kernel of the paths (one nvcc per source, in parallel)
     t0 = time.monotonic()
-    kernels = [paged_attention.KERNEL, grouped_moe.KERNEL, prefill_attention.KERNEL]
+    kernels = [paged_attention.KERNEL, grouped_moe.KERNEL, prefill_attention.KERNEL,
+               fused_norm.KERNEL]
     _build.build(kernels)
     log(f"[build] {', '.join(kernels)} built in {time.monotonic() - t0:.1f}s")
     for name in kernels:
@@ -4338,6 +4543,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 6c. K4 against the eager norm and RoPE chain at the cells' windows
+    with torch.no_grad():
+        k4 = phase_norm_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 7. Mixtral (16 layers) decode step, grouped against dense
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.monotonic()
@@ -4369,6 +4580,10 @@ def main() -> int:
     moe_launches, moe_paths = moe["launches"], moe["paths"]
     moe_embed = moe["surface"]
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 8c. one Qwen3-32B prompt through the longprompt cell's prefill windows
+    qwen_windows = phase_qwen3_windows(card)
     # One entry per kernel and path, each path's launches from its own run.
     entries = [{**k1, "path": f"{MODEL} serve",
                 "launches": dense_launches[paged_attention.KERNEL]},
@@ -4392,7 +4607,19 @@ def main() -> int:
                  "launches": moe_embed["launches"][K3],
                  "launches_by_path": k3_by_path(moe_embed["launches"])},
                 {**k3, "path": f"{MOE_SERVED} prefill windows (4000 tokens, 4 x 1024)",
-                 "launches": windows["launches"]}]
+                 "launches": windows["launches"]},
+                {**k3, "path": f"{QWEN3} prefill windows (2048 tokens, 2 x 1024)",
+                 "launches": qwen_windows["launches"]}]
+    K4 = fused_norm.KERNEL
+    k4_by_path = lambda counts: {p: counts[f"{K4}.{p}"] for p in fused_norm.path_launches}
+    entries += [{**k4, "path": f"{MODEL} serve", "launches": dense_launches[K4],
+                 "launches_by_path": k4_by_path(dense_launches)},
+                {**k4, "path": f"{MOE_SERVED} serve", "launches": moe_launches[K4],
+                 "launches_by_path": k4_by_path(moe_launches)},
+                {**k4, "path": f"{MOE_SERVED} prefill windows (4000 tokens, 4 x 1024)",
+                 "launches": windows["k4_launches"]},
+                {**k4, "path": f"{QWEN3} prefill windows (2048 tokens, 2 x 1024)",
+                 "launches": qwen_windows["k4_launches"]}]
     gc.collect()
     torch.cuda.empty_cache()
 

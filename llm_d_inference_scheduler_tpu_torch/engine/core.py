@@ -126,7 +126,7 @@ import numpy as np
 import torch
 
 from ..models import llama, vision
-from ..ops import _build, grouped_moe, paged_attention, prefill_attention
+from ..ops import _build, fused_norm, grouped_moe, paged_attention, prefill_attention
 from ..ops.moe import check_tileable
 from ..parallel import pp_serve
 from ..parallel import serve as par
@@ -656,9 +656,9 @@ class TorchEngine:
                     self._abort_all()
 
     def _warmup(self):
-        """Build every CUDA kernel the model's paths launch (K1, K3; K2 with
-        the grouped MoE FFN), then run each serving path once with all writes
-        on the trash block 0: a 16-token prefill; with ``prefill_batch``, a
+        """Build every CUDA kernel the model's paths launch (K1, K3, K4; K2
+        with the grouped MoE FFN), then run each serving path once with all
+        writes on the trash block 0: a 16-token prefill; with ``prefill_batch``, a
         batched one; with ``prefill_chunk``, one window and one prefix
         continuation; one decode chunk at every
         batch bucket ``_batch_bucket`` can produce; with role ``encode``,
@@ -666,7 +666,7 @@ class TorchEngine:
         generator, so the outputs do not depend on the warm-up."""
         t0 = time.monotonic()
         if self.device.type == "cuda":
-            kernels = [paged_attention.KERNEL, prefill_attention.KERNEL]
+            kernels = [paged_attention.KERNEL, prefill_attention.KERNEL, fused_norm.KERNEL]
             if self.mcfg.moe_impl == "grouped":
                 kernels.append(grouped_moe.KERNEL)
             _build.build(kernels)

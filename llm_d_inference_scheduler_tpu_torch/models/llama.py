@@ -5,7 +5,9 @@
   (``x @ w``), so ``models/convert_jax.py`` carries JAX weights over as they
   are. The layer loop is a Python loop over per-layer views.
 - Matmuls run in the parameters' dtype with f32 norm/rope/softmax
-  accumulation; logits are f32.
+  accumulation; logits are f32. On CUDA the norms and RoPE run in kernel
+  K4 (``ops/fused_norm.py``), which has no backward: the train step passes
+  the eager functions (``forward``'s ``norms``).
 - Paged KV pages are ``[L, N, block, Hkv, Dh]``. Where the JAX functions
   return new page arrays (donated, so updated in place on the device), these
   functions write the pages in place and return the same tensors.
@@ -42,12 +44,12 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
+from ..ops import fused_norm
 from ..ops.attention import causal_attention
 from ..ops.moe import moe_ffn_grouped, top_k_gates
-from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_decode_attention_cuda
 from ..ops.prefill_attention import prefill_attention
-from ..ops.rope import apply_rope, rope_table
+from ..ops.rope import rope_table
 from ..parallel import serve as par
 from ..utils.device import resolve_device, torch_dtype
 from .configs import ModelConfig
@@ -149,16 +151,6 @@ def layer_params(params: Params) -> list[dict[str, torch.Tensor]]:
     return [{k: per_key[k][i] for k in per_key} for i in range(n)]
 
 
-def qk_normed(cfg: ModelConfig, lp: Params, q: torch.Tensor,
-              k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Qwen3-family per-head RMSNorm on q/k before RoPE (no-op for weights
-    without q_norm/k_norm)."""
-    if "q_norm" in lp:
-        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
-    return q, k
-
-
 def _moe_ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor,
              ep_rank: int = 0, ep: int = 1) -> torch.Tensor:
     """Top-k mixture-of-experts FFN (Mixtral-style), dense over experts: every
@@ -198,17 +190,22 @@ def _ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor, ep_rank: int = 0,
 
 
 def _qkv(cfg: ModelConfig, lp: Params, x: torch.Tensor, cos: torch.Tensor,
-         sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+         sin: torch.Tensor, norms=fused_norm
+         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention-norm, projections, QK-norm and RoPE for x [B, S, D], over
-    the heads the layer's projections hold (all, or a tp rank's)."""
+    the heads the layer's projections hold (all, or a tp rank's). The norms
+    and RoPE go through ``norms`` (K4's wrappers, ``ops/fused_norm.py``, or
+    ``fused_norm.PLAIN``): the Qwen3 family's per-head q/k RMSNorm where the
+    layer holds ``q_norm``/``k_norm``, then RoPE, in one call over q and k."""
     B, S, _ = x.shape
     Dh = cfg.head_dim
-    h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+    h = norms.rms_norm(x, lp["ln_attn"], cfg.norm_eps)
     q = (h @ lp["wq"]).reshape(B, S, -1, Dh)
     k = (h @ lp["wk"]).reshape(B, S, -1, Dh)
     v = (h @ lp["wv"]).reshape(B, S, -1, Dh)
-    q, k = qk_normed(cfg, lp, q, k)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    q, k = norms.qk_norm_rope(q, k, cos, sin, lp.get("q_norm"), lp.get("k_norm"),
+                              cfg.norm_eps)
+    return q, k, v
 
 
 class _Stage:
@@ -235,18 +232,20 @@ class _Stage:
     def tp_shard(self, t: int) -> Params:
         return self.shards[t * self.ep]
 
-    def layer(self, cfg: ModelConfig, lps, x: torch.Tensor, attend) -> torch.Tensor:
+    def layer(self, cfg: ModelConfig, lps, x: torch.Tensor, attend,
+              norms=fused_norm) -> torch.Tensor:
         """One decoder layer: ``attend(t, lp, x_t)`` gives tp rank t's
         attention output over its heads; one sum after ``wo``, one after the
-        FFN (``w2``)."""
+        FFN (``w2``). The residual add after ``wo`` and the MLP norm are one
+        ``norms.rms_norm`` call (one K4 launch)."""
         parts = []
         for t in self.local_tp:
             lp = lps[t * self.ep]
             xt = x.to(self.layout.tp_device(t))
             attn = attend(t, lp, xt)
             parts.append(attn.reshape(*xt.shape[:-1], -1) @ lp["wo"])
-        x = x + par.reduce_sum(parts, self.dev, self.comm)
-        h = rms_norm(x, lps[self.first]["ln_mlp"], cfg.norm_eps)
+        x, h = norms.rms_norm(par.reduce_sum(parts, self.dev, self.comm),
+                              lps[self.first]["ln_mlp"], cfg.norm_eps, residual=x)
         return x + par.reduce_sum(
             [_ffn(cfg, lps[r], h.to(self.layout.devices[r]), e, self.ep)
              for r, _, e in self.layout.ranks()], self.dev, self.comm)
@@ -319,10 +318,10 @@ class _Model:
             parts.append(torch.where(ok[..., None], rows, torch.zeros_like(rows)))
         return par.reduce_sum(parts, self.dev, st.comm)
 
-    def final_norm(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    def final_norm(self, x: torch.Tensor, cfg: ModelConfig, norms=fused_norm) -> torch.Tensor:
         """The final RMSNorm, on stage 0's device (where the ring wraps)."""
-        return rms_norm(x.to(self.dev), self.head.shards[self.head.first]["final_norm"],
-                        cfg.norm_eps)
+        return norms.rms_norm(x.to(self.dev), self.head.shards[self.head.first]["final_norm"],
+                              cfg.norm_eps)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """f32 logits of final-norm hidden states, gathered over the vocab
@@ -355,6 +354,7 @@ def forward(
     mm_embeds: torch.Tensor | None = None,    # [B, M, D] multimodal vectors
     mm_positions: torch.Tensor | None = None,  # [B, M] target positions
     attention_fn: Callable[..., torch.Tensor] = causal_attention,
+    norms=fused_norm,
 ) -> tuple[torch.Tensor, tuple | None]:
     """Full-sequence forward (prefill, training). Returns (logits [B, S, V] f32 — or
     the final-norm hidden states [B, S, D] as f32 with ``want_hidden`` —,
@@ -373,7 +373,11 @@ def forward(
     once per tp rank on that rank's heads with ``causal_attention``'s
     keyword arguments: the sequence-parallel paths (``parallel/
     ring_attention.py``, ``parallel/ulysses.py``) substitute theirs, and the
-    engine's serving prefills pass K3 (``ops/prefill_attention.causal``)."""
+    engine's serving prefills pass K3 (``ops/prefill_attention.causal``).
+    ``norms`` computes the layers' RMSNorms, QK-norm and RoPE and the final
+    norm (``rms_norm``, ``qk_norm_rope``): K4's wrappers by default, which
+    raise where autograd would need their backward; the train step passes
+    the eager ``fused_norm.PLAIN``."""
     m = _Model(params)
     B, S = tokens.shape
     if positions is None:
@@ -395,7 +399,7 @@ def forward(
         kv_out = ((ks[s * m.tp:(s + 1) * m.tp], vs[s * m.tp:(s + 1) * m.tp])
                   if want_kv else None)
         x = run_stage(cfg, st, x, positions, cos, sin, kv_valid=kv_valid,
-                      attention_fn=attention_fn, kv_out=kv_out)
+                      attention_fn=attention_fn, kv_out=kv_out, norms=norms)
     x = m.hop(x, m.pp - 1, 0, shape)
     m.flush()
     kv = None
@@ -406,7 +410,7 @@ def forward(
             kv = (kv[0][0], kv[1][0])
     if x is None:
         return None, kv
-    x = m.final_norm(x, cfg)
+    x = m.final_norm(x, cfg, norms)
     if want_hidden:
         return x.float(), kv
     return m.logits(x), kv
@@ -416,11 +420,12 @@ def run_stage(cfg: ModelConfig, st: _Stage, x: torch.Tensor, positions: torch.Te
               cos: torch.Tensor, sin: torch.Tensor, *,
               kv_valid: torch.Tensor | None = None,
               attention_fn: Callable[..., torch.Tensor] = causal_attention,
-              kv_out: tuple[list, list] | None = None) -> torch.Tensor:
+              kv_out: tuple[list, list] | None = None, norms=fused_norm) -> torch.Tensor:
     """Stage ``st``'s layers over the full sequences ``x`` [B, S, D] (the
     JAX layer scan): returns the stage's output on its device. Each tp rank
-    attends through ``attention_fn`` on its own heads; with ``kv_out`` (K
-    and V lists, one list per tp rank) each layer's K and V are appended."""
+    attends through ``attention_fn`` on its own heads, its norms and RoPE
+    through ``norms`` (``forward``'s); with ``kv_out`` (K and V lists, one
+    list per tp rank) each layer's K and V are appended."""
     per_tp = {}
     for t in st.local_tp:
         dev = st.layout.tp_device(t)
@@ -429,7 +434,7 @@ def run_stage(cfg: ModelConfig, st: _Stage, x: torch.Tensor, positions: torch.Te
 
     def attend(t, lp, xt):
         c, s_, pos, valid = per_tp[t]
-        q, k, v = _qkv(cfg, lp, xt, c, s_)
+        q, k, v = _qkv(cfg, lp, xt, c, s_, norms)
         if kv_out is not None:
             kv_out[0][t].append(k)
             kv_out[1][t].append(v)
@@ -437,7 +442,7 @@ def run_stage(cfg: ModelConfig, st: _Stage, x: torch.Tensor, positions: torch.Te
 
     x = x.to(st.dev)
     for lps in st.layers:
-        x = st.layer(cfg, lps, x, attend)
+        x = st.layer(cfg, lps, x, attend, norms)
     return x
 
 

@@ -8,7 +8,8 @@ splice into prefill as they are (``models/llama.py`` ``forward``). The
 parameters are a plain dict with the JAX package's keys and layout (layers
 stacked ``[L, ...]``, matmul weights ``[in, out]``), so
 ``models/convert_jax.py`` carries the JAX pytree across unchanged. Plain
-PyTorch: the reference tower is plain XLA too, outside any Pallas kernel.
+PyTorch, as the reference tower is plain XLA outside any Pallas kernel,
+but for its RMSNorms, which run in K4 (``ops/fused_norm.py``) on CUDA.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.norms import rms_norm
+from ..ops import fused_norm
 from ..utils.device import resolve_device, torch_dtype
 
 
@@ -107,17 +108,17 @@ def encode_image(params: dict, cfg: VisionConfig, pixels: torch.Tensor) -> torch
     Hd = cfg.head_dim
     lps = params["layers"]
     for i in range(cfg.n_layers):
-        h = rms_norm(x, lps["ln_attn"][i], cfg.norm_eps)
+        h = fused_norm.rms_norm(x, lps["ln_attn"][i], cfg.norm_eps)
         qkv = (h @ lps["wqkv"][i]).reshape(B, S, 3, cfg.n_heads, Hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / (Hd ** 0.5)
         attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, S, D)
         x = x + out @ lps["wo"][i]
-        h = rms_norm(x, lps["ln_mlp"][i], cfg.norm_eps)
+        h = fused_norm.rms_norm(x, lps["ln_mlp"][i], cfg.norm_eps)
         # jax.nn.gelu defaults to the tanh approximation; torch's to erf.
         x = x + F.gelu(h @ lps["w1"][i], approximate="tanh") @ lps["w2"][i]
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = fused_norm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["proj"]
 
 

@@ -18,7 +18,9 @@ of a ``TrainLayout`` (``mesh.py``):
   by 1/dp, is back-propagated in rank order: the gradients are the mean
   over replicas, the all-reduce XLA inserts from the JAX shardings; with
   ``sp > 1`` the attention is ``ring_attention`` over the sp ranks (JAX
-  ``train.py:44-45``).
+  ``train.py:44-45``);
+- the norms and RoPE are the eager functions (``fused_norm.PLAIN``), as
+  kernel K4 has no backward.
 
 Refused: the grouped MoE FFN (kernel K2 has no backward; the dense FFN
 trains, as in JAX, whose ``moe_impl`` defaults to dense), a multi-process
@@ -34,6 +36,7 @@ import torch
 
 from ..models import llama
 from ..models.configs import ModelConfig
+from ..ops import fused_norm
 from ..ops.attention import causal_attention
 from . import serve as par
 from .mesh import TrainLayout
@@ -153,7 +156,8 @@ def make_train_step(cfg: ModelConfig, layout: TrainLayout | par.ServeLayout):
         for d in range(layout.dp):
             params = _replica_params(cfg, state, d)
             toks = tokens[d * rows:(d + 1) * rows].to(params.layout.first_device)
-            logits, _ = llama.forward(params, cfg, toks, attention_fn=hooks[d])
+            logits, _ = llama.forward(params, cfg, toks, attention_fn=hooks[d],
+                                      norms=fused_norm.PLAIN)
             loss = next_token_loss(logits, toks)
             (loss / layout.dp if layout.dp > 1 else loss).backward()
             loss = loss.detach().to(layout.devices[0])

@@ -16,6 +16,7 @@ rounds once to bf16 (2**-8 of the value) and P rounds to bf16 before the
 P.V product, which moves an output by at most 2**-9 * max|v| (the sum of
 the rounding errors of weights that sum to one); 1e-5 more covers the order
 of the sums. Its f32 path differs only in the order of the sums: 1e-5.
+K4 (RMSNorm, QK-norm and RoPE) states its tolerances above its tests.
 """
 
 import dataclasses
@@ -23,14 +24,17 @@ import dataclasses
 import pytest
 import torch
 
+from llm_d_inference_scheduler_tpu_torch import ops
 from llm_d_inference_scheduler_tpu_torch.models import configs, llama
 from llm_d_inference_scheduler_tpu_torch.ops import (
     attention,
+    fused_norm,
     grouped_moe,
     moe,
     paged_attention,
     prefill_attention,
 )
+from llm_d_inference_scheduler_tpu_torch.ops.rope import rope_table
 
 pytestmark = pytest.mark.cuda
 
@@ -432,3 +436,208 @@ def test_prefill_forward_and_prefix_through_k3(gpu, name, dtype):
     plain = plain[:, -1]
     tol = 1e-4 if dtype == "float32" else 5e-2 * float(plain.abs().max())
     torch.testing.assert_close(kern, plain, atol=tol, rtol=1e-4 if dtype == "float32" else 0)
+
+
+# ---- K4: RMSNorm, QK-norm and RoPE -------------------------------------------
+#
+# K4 against the eager chain (``fused_norm.*_reference``) on the same CUDA
+# inputs, in the working dtype. RoPE alone makes the eager chain's f32
+# products and sums in the same order and rounds once: bit-equal. A norm
+# differs only by the order of its f32 sum of squares, which moves 1/rms by
+# a few f32 ulps: f32 within rtol 1e-5; bf16 within one bf16 step of the
+# value (2**-7 relative), where that change tips a rounding. QK-norm then
+# RoPE: a normed element one bf16 step off moves an output by at most 2**-7
+# of its (pair) rotation's norm, at most 2**-6 of the largest output, and
+# the output's own rounding may tip by 2**-7 of the value.
+
+
+def _norm_tol(ref: torch.Tensor) -> dict:
+    if ref.dtype == torch.float32:
+        return dict(atol=1e-6, rtol=1e-5)
+    return dict(atol=1e-6, rtol=2.0 ** -7)
+
+
+def _qk_tol(ref: torch.Tensor) -> dict:
+    top = float(ref.abs().max())
+    if ref.dtype == torch.float32:
+        return dict(atol=1e-5 * top, rtol=1e-5)
+    return dict(atol=2.0 ** -6 * top, rtol=2.0 ** -7)
+
+
+def _k4_counted(entry: str, fn):
+    before = fused_norm.launches, fused_norm.path_launches[entry]
+    out = fn()
+    torch.cuda.synchronize()
+    assert fused_norm.launches == before[0] + 1
+    assert fused_norm.path_launches[entry] == before[1] + 1
+    return out
+
+
+def _norm_weight(gen, n, dtype):
+    return (1 + 0.1 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (1, 1024, 5120),   # Qwen3-32B's window
+    (1, 1024, 4096),   # Mixtral's window
+    (4, 1, 5120),      # a decode batch
+    (3, 7, 8192),      # Llama-3-70B's width
+    (2, 5, 128),       # the tiny configs
+    (1, 64, 64),       # the vision tower
+    (3, 32768),        # the widest row the kernel takes
+    (5, 8),
+])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rms_norm_kernel_matches_eager(gpu, shape, dtype, residual):
+    """RMSNorm through K4 against the eager rms_norm (eps 1e-6 and 1e-5);
+    with the residual, the sum is bit-equal to the eager bf16/f32 add."""
+    x = (3 * torch.randn(shape, generator=gpu, device="cuda")).to(dtype)
+    w = _norm_weight(gpu, shape[-1], dtype)
+    r = torch.randn(shape, generator=gpu, device="cuda").to(dtype) if residual else None
+    eps = 1e-6 if shape[-1] == 5120 else 1e-5
+    got = _k4_counted("rms_norm", lambda: fused_norm.rms_norm(x, w, eps, residual=r))
+    want = fused_norm.rms_norm_reference(x, w, eps, residual=r)
+    if residual:
+        assert torch.equal(got[0], want[0])
+        got, want = got[1], want[1]
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got, want, **_norm_tol(want))
+
+
+def _rope_case(gen, lead, Hq, Hk, D, dtype, theta, positions):
+    q = torch.randn(*lead, Hq, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(*lead, Hk, D, generator=gen, device="cuda").to(dtype)
+    cos, sin = rope_table(positions, D, theta)
+    return q, k, cos, sin
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [
+    "qwen3 window", "mixtral window", "qwen3 decode", "mixtral decode", "qwen3 tp rank",
+    "mixtral tp rank", "tiny", "tiny-qwen", "past 4096",
+])
+def test_qk_norm_rope_kernel_matches_eager(gpu, case, dtype):
+    """QK-norm and RoPE through K4 (one launch for q and k) against the
+    eager rms_norm and apply_rope: Qwen3-32B's 64/8 heads with QK-norm (θ
+    1e6, eps 1e-6) and Mixtral's 32/8 with RoPE alone (θ 1e6), over a
+    1024-token window, a decode batch [4, 1] (cos/sin as decode_slab
+    broadcasts them), one tp=2 rank's heads (32/4, 16/4), the tiny configs'
+    head dims 32 (RoPE, θ 5e5) and 48 (QK-norm), and positions 4096-36863."""
+    window = torch.arange(2048, 3072, device="cuda")[None]
+    decode = torch.tensor([5, 900, 4095, 4100], device="cuda")
+    Hq, Hk, D, norm, theta, pos, lead = {
+        "qwen3 window": (64, 8, 128, True, 1e6, window, (1, 1024)),
+        "mixtral window": (32, 8, 128, False, 1e6, window, (1, 1024)),
+        "qwen3 decode": (64, 8, 128, True, 1e6, decode, (4, 1)),
+        "mixtral decode": (32, 8, 128, False, 1e6, decode, (4, 1)),
+        "qwen3 tp rank": (32, 4, 128, True, 1e6, window, (1, 1024)),
+        "mixtral tp rank": (16, 4, 128, False, 1e6, window, (1, 1024)),
+        "tiny": (4, 2, 32, False, 5e5, window[:, :37], (1, 37)),
+        "tiny-qwen": (4, 2, 48, True, 1e6, window[:, :37], (1, 37)),
+        "past 4096": (64, 8, 128, True, 1e6,
+                      torch.randint(4096, 36864, (2, 300), generator=gpu, device="cuda"),
+                      (2, 300)),
+    }[case]
+    q, k, cos, sin = _rope_case(gpu, lead, Hq, Hk, D, dtype, theta, pos)
+    if pos is decode:  # decode_slab's [B, 1, D/2] tables
+        cos, sin = cos[:, None], sin[:, None]
+    qn = _norm_weight(gpu, D, dtype) if norm else None
+    kn = _norm_weight(gpu, D, dtype) if norm else None
+    eps = 1e-6
+    got = _k4_counted("qk_norm_rope",
+                      lambda: fused_norm.qk_norm_rope(q, k, cos, sin, qn, kn, eps))
+    want = fused_norm.qk_norm_rope_reference(q, k, cos, sin, qn, kn, eps)
+    for g, w_ in zip(got, want):
+        assert g.dtype == dtype and g.shape == w_.shape
+        if norm:
+            torch.testing.assert_close(g, w_, **_qk_tol(w_))
+        else:
+            assert torch.equal(g, w_), float((g.float() - w_.float()).abs().max())
+
+
+def test_k4_refusals_and_grad_on_cuda(gpu):
+    """An unsupported width, head dim or dtype raises on the kernel's path,
+    and so does an input that requires grad under grad mode (K4 has no
+    backward; ``fused_norm.PLAIN``, the caller's choice, differentiates);
+    under no_grad the kernel runs. An empty call launches nothing."""
+    x = torch.randn(4, 100, device="cuda")
+    with pytest.raises(ValueError, match="width 100"):
+        fused_norm.rms_norm(x, torch.ones(100, device="cuda"))
+    with pytest.raises(ValueError, match="dtype"):
+        fused_norm.rms_norm(x[:, :96].half(), torch.ones(96, device="cuda").half())
+    q, k, cos, sin = _rope_case(gpu, (1, 8), 4, 2, 24, torch.float32, 1e4,
+                                torch.arange(8, device="cuda")[None])
+    with pytest.raises(ValueError, match="head_dim 24"):
+        fused_norm.qk_norm_rope(q, k, cos, sin)
+    x = torch.randn(3, 128, device="cuda", requires_grad=True)
+    w = torch.ones(128, device="cuda")
+    before = fused_norm.launches
+    with pytest.raises(ValueError, match="no backward"):
+        fused_norm.rms_norm(x, w)
+    q, k, cos, sin = _rope_case(gpu, (1, 8), 4, 2, 32, torch.float32, 1e4,
+                                torch.arange(8, device="cuda")[None])
+    with pytest.raises(ValueError, match="no backward"):
+        fused_norm.qk_norm_rope(q.requires_grad_(True), k, cos, sin)
+    fused_norm.PLAIN.rms_norm(x, w).sum().backward()
+    assert fused_norm.launches == before and x.grad is not None
+    with torch.no_grad():
+        fused_norm.rms_norm(x, w)
+    assert fused_norm.launches == before + 1
+    empty = x.detach()[:0]
+    assert fused_norm.rms_norm(empty, w, residual=empty)[1].shape == (0, 128)
+    q, k, cos, sin = _rope_case(gpu, (1, 0), 4, 2, 32, torch.float32, 1e4,
+                                torch.arange(0, device="cuda")[None])
+    assert fused_norm.qk_norm_rope(q, k, cos, sin)[0].shape == (1, 0, 4, 32)
+    assert fused_norm.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_served_qwen3_window_launches_k4(gpu, dtype):
+    """One served window on Qwen3-32B's widths (2 of its 64 layers): a
+    1024-token prefix continuation through prefill_with_prefix over 512
+    cached tokens launches K4 3 x L + 1 times (ln_attn, QK-norm and RoPE,
+    the residual add and ln_mlp in each layer; the final norm), K3 L
+    times, and its greedy token equals the eager chain's on the same
+    pages (logits within 5 % of the largest in bf16: two layers' rounding;
+    1e-3 in f32)."""
+    cfg = dataclasses.replace(configs.get_config("qwen3-32b"), n_layers=2, dtype=dtype)
+    params = llama.init_params(cfg, "cuda", generator=gpu)
+    block = cfg.kv_block_size
+    prefix, S = 512, 1024
+    n_blocks = (prefix + S) // block
+    shape = (cfg.n_layers, 1 + n_blocks, block, cfg.n_kv_heads, cfg.head_dim)
+    kp = torch.randn(shape, generator=gpu, device="cuda").to(params["embed"].dtype)
+    vp = torch.randn(shape, generator=gpu, device="cuda").to(kp.dtype)
+    row = torch.arange(1, 1 + n_blocks, dtype=torch.int32, device="cuda")[None]
+    tokens = torch.randint(1, cfg.vocab_size, (1, S), generator=gpu, device="cuda")
+    i32 = lambda n: torch.tensor([n], dtype=torch.int32, device="cuda")
+
+    def window():
+        return llama.prefill_with_prefix(params, cfg, tokens, i32(S), i32(prefix), kp.clone(),
+                                         vp.clone(), row, row[:, :prefix // block])[0]
+
+    ops.reset_kernel_launches()
+    with torch.no_grad():
+        kern = window()
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    assert launches[fused_norm.KERNEL] == 3 * cfg.n_layers + 1, launches
+    assert launches["fused_norm_rope.rms_norm"] == 2 * cfg.n_layers + 1, launches
+    assert launches["fused_norm_rope.qk_norm_rope"] == cfg.n_layers, launches
+    assert launches[prefill_attention.KERNEL] == cfg.n_layers, launches
+    eager = pytest.MonkeyPatch()
+    eager.setattr(fused_norm, "rms_norm", fused_norm.rms_norm_reference)
+    eager.setattr(fused_norm, "qk_norm_rope", fused_norm.qk_norm_rope_reference)
+    try:
+        with torch.no_grad():
+            plain = window()
+    finally:
+        eager.undo()
+    tol = 1e-3 if dtype == "float32" else 5e-2 * float(plain.abs().max())
+    torch.testing.assert_close(kern, plain, atol=tol, rtol=0)
+    # Greedy tokens equal, unless the eager logits' top two lie closer than
+    # twice the largest difference (a near-tie either may break).
+    top2 = plain.topk(2, dim=-1).values[0]
+    if float(top2[0] - top2[1]) > 2 * float((kern - plain).abs().max()):
+        assert torch.equal(kern.argmax(-1), plain.argmax(-1))
