@@ -983,9 +983,9 @@ async def check_surface(server, cfg_model, tag: str, card: str) -> dict:
         fail(f"{tag}: /v1/chat/completions/render differs from the tokenizer")
 
     # Greedy chat and responses on the same messages. A primer request
-    # caches the prompt's full blocks first, so that both prefill through
-    # the same prefix-cache path (a whole-prompt and a prefix prefill
-    # round differently in bf16).
+    # caches the prompt's full blocks first, so that both prefill over the
+    # same cached prefix (a prefill with and without a prior part rounds
+    # differently in bf16).
     gen = {"temperature": 0, "ignore_eos": True}
     await asyncio.to_thread(http_json, port, "/v1/chat/completions",
                             {"messages": messages, "max_tokens": 1, **gen})
@@ -2204,7 +2204,8 @@ async def check_prefill_windows(params, model_dir: str, n_layers: int, card: str
                                 n_tokens: int = 4000, vocab: int = 32_000) -> dict:
     """8b: one prompt of the longprompt cell's longest length (4000 tokens)
     through an engine with the cell's prefill settings (1024-token windows,
-    the grouped FFN): the first window whole, three over a prior part; K3
+    the grouped FFN), every window through ``llama.prefill``, the first
+    with no prior part, three over one; K3
     must launch once per layer and window, all on wgmma, and nothing else
     of the prefill may attend; K4 3 x n_layers + 1 times a window (each
     layer's attention norm, QK-norm and RoPE, residual add and MLP norm;
@@ -3205,7 +3206,7 @@ def schedule_logits(params, staged, mcfg, prompts: list[list[int]]) -> dict[str,
     add in the same order and only the stages differ; ``phase_pp``'s
     prefill gate holds tp and ep to tp=1) on the same tokens, positions
     and block tables. Each side prefills ``prompts`` (one lane each) into
-    pages of its own layout with its own ``forward``; then the staged
+    pages of its own layout with ``llama.prefill``; then the staged
     ``decode_step`` (the broadcast ring) and both tokens of a two-token
     lane-group interleave chunk (``pp_serve.interleaved_chunk``, fed the
     reference's greedy tokens, so its second step reads the KV its first
@@ -3227,16 +3228,11 @@ def schedule_logits(params, staged, mcfg, prompts: list[list[int]]) -> dict[str,
     first = []
     for b, prompt in enumerate(prompts):
         ids = torch.tensor([prompt], device=dev)
-        pos = torch.arange(len(prompt), device=dev)
-        blk, slot = tables[b, pos // block].long(), pos % block
+        n = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
         for side in (ref, staged):
-            logits, (ks, vs) = llama.forward(side, mcfg, ids, want_kv=True)
+            logits, _, _ = llama.prefill(side, mcfg, ids, n, *pages[id(side)], tables[b:b + 1])
             if side is ref:
-                first.append(int(logits[0, -1].argmax()))
-            del logits
-            for pk, pv, k, v in zip(*pages[id(side)], ks, vs):
-                i, j = blk.to(pk.device), slot.to(pk.device)
-                pk[:, i, j], pv[:, i, j] = k[:, 0].to(pk.device), v[:, 0].to(pk.device)
+                first.append(int(logits[0].argmax()))
     tok0 = torch.tensor(first, device=dev)
     lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
     want_logits = [llama.decode_step(ref, mcfg, tok0, lens, *pages[id(ref)], tables)[0]]

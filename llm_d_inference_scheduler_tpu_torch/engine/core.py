@@ -7,12 +7,15 @@ Port of ``TpuEngine`` (``llm_d_inference_scheduler_tpu/engine/core.py``):
   submission and per-request asyncio queues (events hop back to the event
   loop with ``call_soon_threadsafe``).
 - Admission matches the prompt's complete blocks against the prefix cache
-  (``PrefixCachingAllocator``), allocates the rest and prefills: a plain
-  prompt through ``llama.forward`` + ``write_prefill_kv``, a cache hit
-  through ``llama.prefill_with_prefix`` over the cached prefix only (both
-  attend through K3, ``ops/prefill_attention.py``); the first token is
-  sampled in the same dispatch and read back after the next decode chunk
-  has been queued.
+  (``PrefixCachingAllocator``), allocates the rest and prefills. Every
+  prefill is one device op (``prefill``, ``llama.prefill``) over N rows,
+  each a window of tokens continuing from the KV already in its first
+  blocks or from nothing: a plain prompt (N = 1, or a batch), a cache
+  hit's suffix over the cached prefix, a window of a long prompt, a
+  multimodal prompt with its embeddings spliced in. It writes the rows'
+  KV, attends through K3 (``ops/prefill_attention.py``) and samples each
+  row's first token in the same dispatch; the token is read back after
+  the next decode chunk has been queued.
 - Decode runs ``decode_chunk`` decode+sample steps back to back on the device
   over the active slots, compacted into a power-of-two batch bucket, with ONE
   host readback of the [K, B] sampled tokens per chunk. Padding lanes point
@@ -22,10 +25,9 @@ Port of ``TpuEngine`` (``llm_d_inference_scheduler_tpu/engine/core.py``):
   ``[L, N, block, Hkv, Dh]`` are allocated once and written in place by the
   prefill and decode functions.
 - Incremental prefill (``prefill_chunk``): a long prompt prefills one
-  block-aligned window per engine step, between decode chunks; windows after
-  the first continue from the written blocks through
-  ``llama.prefill_with_prefix``, and the prefix-cache commit waits for the
-  last window.
+  block-aligned window per engine step, between decode chunks, each
+  continuing from the blocks written (or matched in the cache) before it;
+  the prefix-cache commit waits for the last window.
 - P/D KV handoff, host-staged over HTTP (single device): a prefill tagged
   ``do_remote_decode`` gathers its blocks to host memory (pow2-padded block
   count) and finishes with ``kv_transfer_params`` naming this engine; with
@@ -45,8 +47,8 @@ Port of ``TpuEngine`` (``llm_d_inference_scheduler_tpu/engine/core.py``):
   on the engine thread (requests queue to it with a ``Future``), touching
   no page or slot.
 - Multimodal prefill (E/P/D): a request carrying encoder embeddings
-  (``mm_embeds``) prefills its whole prompt in one ``llama.forward`` with
-  the embeddings spliced in at ``mm_positions``, bypassing the prefix cache,
+  (``mm_embeds``) prefills its whole prompt in one window with the
+  embeddings spliced in at ``mm_positions``, bypassing the prefix cache,
   the KV events and the incremental-prefill window; the vision tower that
   makes such embeddings (``vision``, ``encode_images``) serves ``/v1/encode``.
 - Shared-storage probe: a request with ``cache_hit_threshold`` whose prefix
@@ -58,7 +60,7 @@ Port of ``TpuEngine`` (``llm_d_inference_scheduler_tpu/engine/core.py``):
   without a kernel.
 
 - Batched prefill (``prefill_batch``): same-bucket plain prompts admitted
-  together prefill in one [N, S] forward, grouped by the JAX engine's rules
+  together prefill in one [N, S] dispatch, grouped by the JAX engine's rules
   (``_flush_admissions``).
 - Weights: passed in, drawn from the seed, or loaded from a converted
   directory (``engine/checkpoint.py``) named by ``model`` or
@@ -74,10 +76,10 @@ Port of ``TpuEngine`` (``llm_d_inference_scheduler_tpu/engine/core.py``):
 - Pipeline parallel (``pp_size``; ``parallel/pp_serve.py``): the ranks form
   ``pp`` stages, each holding its slab of the layers and their pages (one
   K/V pair per (stage, tp rank) ``[L/pp, N, block, Hkv/tp, Dh]``), the
-  embedding and head on stage 0. Prefill, prefix prefill and the
-  embeddings run the stages in turn; a decode chunk takes the lane-group
-  interleave when its batch bucket divides by ``pp`` and the broadcast
-  ring otherwise (the JAX ``"auto"`` schedule). Block ids stay global, so
+  embedding and head on stage 0. Prefill and the embeddings run the
+  stages in turn; a decode chunk takes the lane-group interleave when its
+  batch bucket divides by ``pp`` and the broadcast ring otherwise (the JAX
+  ``"auto"`` schedule). Block ids stay global, so
   the allocator, prefix caching, the events and ``/debug/kv`` do not
   change; the ``/kv`` export joins the stages along the layer axis after
   the kv-head shards, so it keeps the single-device layout. A pp engine
@@ -657,13 +659,13 @@ class TorchEngine:
 
     def _warmup(self):
         """Build every CUDA kernel the model's paths launch (K1, K3, K4; K2
-        with the grouped MoE FFN), then run each serving path once with all
-        writes on the trash block 0: a 16-token prefill; with ``prefill_batch``, a
-        batched one; with ``prefill_chunk``, one window and one prefix
-        continuation; one decode chunk at every
-        batch bucket ``_batch_bucket`` can produce; with role ``encode``,
-        the vision tower. Greedy lanes draw nothing from the sampling
-        generator, so the outputs do not depend on the warm-up."""
+        with the grouped MoE FFN), then run each serving shape once with all
+        writes on the trash block 0: a 16-token prefill; with
+        ``prefill_chunk``, one window with no prior part and one over one
+        prior block; with ``prefill_batch``, a batched prefill; one decode
+        chunk at every batch bucket ``_batch_bucket`` can produce; with role
+        ``encode``, the vision tower. Greedy lanes draw nothing from the
+        sampling generator, so the outputs do not depend on the warm-up."""
         t0 = time.monotonic()
         if self.device.type == "cuda":
             kernels = [paged_attention.KERNEL, prefill_attention.KERNEL, fused_norm.KERNEL]
@@ -677,10 +679,9 @@ class TorchEngine:
         if win:
             windows += [(min(win, self.cfg.max_model_len - 1), 0),
                         (min(win, self.cfg.max_model_len - 1 - block), block)]
-        for n, prefix in windows:
+        for n, prior in windows:
             if n > 0:
-                self._run_prefill(_DUMMY_REQ, [0] * n, [0] * n, prefix,
-                                  [0] * (prefix // block), row)
+                self._prefill_rows([_DUMMY_REQ], [[0] * n], row, prior_len=[prior])
         K, n = self._prefill_batch(), windows[0][0]
         if K > 1 and n > 0:
             self._prefill_rows([_DUMMY_REQ] * K, [[0] * n] * K,
@@ -1010,7 +1011,7 @@ class TorchEngine:
         return blocks
 
     def _run_batched_prefill(self, entries: list[tuple]):
-        """One [N, S] prefill of N plain prompts (``_prefill_rows``); each
+        """One prefill of N plain prompts (``_prefill_rows``); each
         slot lands pending with its row of the sampled first tokens. On a
         failure every entry not slotted yet is freed and answered ABORT."""
         block = self.mcfg.kv_block_size
@@ -1137,36 +1138,41 @@ class TorchEngine:
 
     def _run_prefill(self, req, prompt, suffix, cached_tokens, matched_bids,
                      row) -> torch.Tensor:
-        """Prefill + first-token sample; returns the token on the device.
-        With ``matched_bids`` the suffix continues from the KV of those
-        (cached or already written) blocks, else the whole prompt runs, with
-        the request's multimodal embeddings spliced in."""
-        if matched_bids:
-            return self._device_call(("prefix_prefill",), dict(
-                tokens=np.asarray([suffix], np.int32),
-                suffix_len=np.asarray([len(suffix)], np.int32),
-                prefix_len=np.asarray([cached_tokens], np.int32), row=row,
-                prior=np.asarray([matched_bids], np.int32), **self._sample_args([req])))
-        return self._prefill_rows([req], [prompt], row, **self._mm_args(req))[0]
+        """One request's prefill (``_prefill_rows`` with one row) and
+        first-token sample; returns the token on the device. ``suffix``,
+        the tokens of ``prompt`` from ``cached_tokens`` on (the whole
+        prompt, a cache hit's suffix or a window), continues from the KV of
+        those tokens' blocks ``matched_bids``, the head of ``row``; a
+        multimodal request's embeddings are spliced in. The dispatch reads
+        ``suffix``, ``cached_tokens`` and ``row``; ``h100_bench/trace.py``
+        wraps this call by its whole signature."""
+        return self._prefill_rows([req], [suffix], row, prior_len=[cached_tokens],
+                                  **self._mm_args(req))[0]
 
-    def _prefill_rows(self, reqs, prompts, rows: np.ndarray, **mm) -> torch.Tensor:
-        """Whole-prompt prefill of N prompts in one [N, S] forward, S the
-        longest (eager PyTorch has no compile cache to bound, so no padding
-        rows and no bucket padding): each row's KV goes to its block-table
-        row ``rows[k]`` (padding positions to the trash block 0) and its
-        first token is sampled at its last real position. Returns the
-        tokens [N] on the device (the ``prefill`` op, ``mm_prefill`` with
-        multimodal embeddings)."""
-        N, S = len(prompts), max(len(p) for p in prompts)
+    def _prefill_rows(self, reqs, windows, rows: np.ndarray, prior_len=None,
+                      **mm) -> torch.Tensor:
+        """One prefill dispatch of N rows (the ``prefill`` op): row k
+        computes ``windows[k]`` at positions ``prior_len[k]`` on (0
+        without), attending over the KV its block-table row ``rows[k]``
+        holds before them (a block multiple), and writes its KV into that
+        row, padding positions into the trash block 0. S is the longest
+        window (eager PyTorch has no compile cache to bound, so no padding
+        rows and no bucket padding). Returns the N tokens sampled at the
+        rows' last real positions, on the device."""
+        N, S = len(windows), max(len(w) for w in windows)
         tokens = np.zeros((N, S), np.int32)
-        for k, p in enumerate(prompts):
-            tokens[k, : len(p)] = p
-        return self._device_call(("mm_prefill",) if mm else ("prefill",), dict(
-            tokens=tokens, lens=np.asarray([len(p) for p in prompts], np.int32),
-            rows=rows, **self._sample_args(reqs), **mm))
+        for k, w in enumerate(windows):
+            tokens[k, : len(w)] = w
+        args = dict(tokens=tokens, new_len=np.asarray([len(w) for w in windows], np.int32),
+                    rows=rows)
+        P = max(prior_len or [0]) // self.mcfg.kv_block_size
+        if P:
+            args |= dict(prior_len=np.asarray(prior_len, np.int32),
+                         prior=np.ascontiguousarray(rows[:, :P]))
+        return self._device_call(("prefill",), args | self._sample_args(reqs) | mm)
 
     def _mm_args(self, req: EngineRequest) -> dict[str, np.ndarray]:
-        """The ``mm_prefill`` op's splice arguments for a multimodal request
+        """The ``prefill`` op's splice arguments for a multimodal request
         (a batch of one); missing or short ``mm_positions`` default to the
         image-first layout, as in the JAX engine."""
         if req.mm_embeds is None:
@@ -1229,8 +1235,6 @@ class TorchEngine:
             row[0, : len(s.blocks)] = s.blocks
             t0 = time.monotonic()
             try:
-                # The first window runs the whole-prompt path; later ones
-                # continue from the blocks already written (block-aligned).
                 tok_dev = self._run_prefill(req, window, window, written,
                                             s.blocks[: written // block], row)
             except Exception:
@@ -1962,10 +1966,8 @@ class TorchEngine:
         kind = op[0]
         if kind == "decode":
             return self._op_decode(**args)
-        if kind in ("prefill", "mm_prefill"):
+        if kind == "prefill":
             return self._op_prefill(**args)
-        if kind == "prefix_prefill":
-            return self._op_prefix_prefill(**args)
         if kind == "import":
             return self._op_import(**args)
         if kind == "stage_kv":
@@ -1997,34 +1999,15 @@ class TorchEngine:
         knobs = SamplingKnobs.from_numpy(temps, top_k, top_p, self.device)
         return sample_tokens(logits, self._sample_gen, knobs)
 
-    def _op_prefill(self, tokens, lens, rows, temps, top_k, top_p,
-                    mm_embeds=None, mm_positions=None):
-        mm = {}
-        if mm_embeds is not None:
-            mm = {"mm_embeds": self._to_dev(mm_embeds),
-                  "mm_positions": self._to_dev(mm_positions)}
-        lens_dev = self._to_dev(lens)
-        hidden, (k_new, v_new) = llama.forward(self.params, self.mcfg,
-                                               self._to_dev(tokens), want_kv=True,
-                                               want_hidden=True,
-                                               attention_fn=prefill_attention.causal, **mm)
-        llama.write_prefill_kv(self.k_pages, self.v_pages, k_new, v_new,
-                               self._to_dev(rows), lens_dev)
-        if hidden is None:
-            return None
-        # Only each row's last real position needs the LM head (the hidden
-        # state is the forward's f32 copy of a bf16/f32 value: the cast back
-        # is exact).
-        last = hidden[torch.arange(len(lens), device=self.device), (lens_dev - 1).long()]
-        logits = llama.lm_logits(self.params, last.to(self.dtype))
-        return self._sample(logits, temps, top_k, top_p)
-
-    def _op_prefix_prefill(self, tokens, suffix_len, prefix_len, row, prior,
-                           temps, top_k, top_p):
-        logits, _, _ = llama.prefill_with_prefix(
-            self.params, self.mcfg, self._to_dev(tokens), self._to_dev(suffix_len),
-            self._to_dev(prefix_len), self.k_pages, self.v_pages, self._to_dev(row),
-            self._to_dev(prior))
+    def _op_prefill(self, tokens, new_len, rows, temps, top_k, top_p, prior_len=None,
+                    prior=None, mm_embeds=None, mm_positions=None):
+        to_dev = self._to_dev
+        mm = {} if mm_embeds is None else dict(mm_embeds=to_dev(mm_embeds),
+                                               mm_positions=to_dev(mm_positions))
+        logits, _, _ = llama.prefill(
+            self.params, self.mcfg, to_dev(tokens), to_dev(new_len), self.k_pages, self.v_pages,
+            to_dev(rows), None if prior_len is None else to_dev(prior_len),
+            None if prior is None else to_dev(prior), **mm)
         return self._sample(logits, temps, top_k, top_p)
 
     def _op_embed(self, ids):

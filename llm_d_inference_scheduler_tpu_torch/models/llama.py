@@ -10,10 +10,17 @@
   the eager functions (``forward``'s ``norms``).
 - Paged KV pages are ``[L, N, block, Hkv, Dh]``. Where the JAX functions
   return new page arrays (donated, so updated in place on the device), these
-  functions write the pages in place and return the same tensors.
-- ``decode_step`` takes the paged-attention function as a parameter,
-  defaulting to the CUDA kernel's wrapper (which computes the plain version
-  on CPU tensors) — the counterpart of the JAX ``use_pallas`` switch.
+  functions write the pages in place and return the same tensors; one
+  helper (``_write_kv``) writes new K/V rows into them for ``prefill`` and
+  ``decode_slab``.
+- Serving runs two functions: ``prefill`` writes the KV of N rows' prompt
+  windows, each continuing from the KV its block table already holds or
+  from nothing, and returns their next-token logits (attention in kernel
+  K3, ``ops/prefill_attention.py``); ``decode_step`` takes one token per
+  lane, its paged attention a parameter defaulting to the CUDA kernel K1's
+  wrapper (which computes the plain version on CPU tensors) — the
+  counterpart of the JAX ``use_pallas`` switch. ``forward`` (no pages)
+  serves training, embeddings and whole-sequence logits.
 - MoE configs (Mixtral family) stack the FFN weights on an experts axis
   ``[L, E, D, F]`` beside a per-layer ``router`` ``[L, D, E]``; ``_ffn``
   dispatches on the parameters, so every path serves both families.
@@ -302,6 +309,28 @@ class _Model:
             w.wait()
         self._sends = []
 
+    def run_stages(self, x: torch.Tensor | None, shape, stage) -> torch.Tensor | None:
+        """Stage 0's input ``x`` (of ``shape``) through every stage in turn,
+        back on stage 0: ``stage(s, st, x)`` runs stage ``s`` where this
+        process holds it. None on a process without stage 0."""
+        for s, st in enumerate(self.stages):
+            if s > 0:
+                x = self.hop(x, s - 1, s, shape)
+            if st.held:
+                x = stage(s, st, x)
+        x = self.hop(x, self.pp - 1, 0, shape)
+        self.flush()
+        return x
+
+    def stage0_input(self, tokens: torch.Tensor, mm_embeds: torch.Tensor | None = None,
+                     mm_positions: torch.Tensor | None = None) -> torch.Tensor | None:
+        """The embeddings of ``tokens``, the multimodal rows spliced in
+        (``_splice``); None on a process without stage 0."""
+        if not self.head.held:
+            return None
+        x = self.embed(tokens)
+        return x if mm_embeds is None else _splice(x, mm_embeds, mm_positions)
+
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token embeddings: a masked lookup in each vocab shard, summed
         (the other shards add exact zeros)."""
@@ -336,10 +365,30 @@ def _page_list(pages) -> list[torch.Tensor]:
     return list(pages) if isinstance(pages, (list, tuple)) else [pages]
 
 
-def lm_logits(params, x: torch.Tensor) -> torch.Tensor:
-    """f32 logits of final-norm hidden states ``x`` (in the params' dtype),
-    on the first rank's device (a process of stage 0)."""
-    return _Model(params).logits(x)
+def _write_kv(kp: torch.Tensor, vp: torch.Tensor, ks: list[torch.Tensor],
+              vs: list[torch.Tensor], tables: torch.Tensor, positions: torch.Tensor,
+              valid: torch.Tensor | None = None) -> None:
+    """Write new K/V rows into one rank's pages ``kp``/``vp`` [L, N, block,
+    Hkv, Dh], in place, with one scatter each: ``ks``/``vs`` hold one tensor
+    per layer, [B, S, Hkv, Dh] (a decode step's [B, Hkv, Dh]), of the tokens
+    at ``positions`` [B, S] ([B]) of the rows whose block tables are
+    ``tables`` [B, W]. Position p of row b lands in block tables[b, p //
+    block] at slot p % block; a position past the table writes through its
+    last entry (a finished lane still stepping in a fused decode chunk; JAX
+    clamps the gather index silently), one where ``valid`` is False in the
+    trash block 0."""
+    dev = kp.device
+    block, W = kp.shape[2], tables.shape[1]
+    pos = positions.to(dev).long().reshape(tables.shape[0], -1)
+    blk = tables.to(dev).long().gather(1, (pos // block).clamp(max=W - 1))
+    slot = pos % block
+    if valid is not None:
+        invalid = ~valid.to(dev)
+        blk, slot = blk.masked_fill(invalid, 0), slot.masked_fill(invalid, 0)
+    bi, si = blk.reshape(-1), slot.reshape(-1)
+    for pages, rows in ((kp, ks), (vp, vs)):
+        new = torch.stack(rows)
+        pages[:, bi, si] = new.reshape(len(rows), bi.numel(), *new.shape[-2:]).to(pages.dtype)
 
 
 def forward(
@@ -348,32 +397,29 @@ def forward(
     tokens: torch.Tensor,                     # [B, S] int
     positions: torch.Tensor | None = None,    # [B, S]
     *,
-    want_kv: bool = False,
     want_hidden: bool = False,
     kv_valid: torch.Tensor | None = None,     # [B, S] padding mask
     mm_embeds: torch.Tensor | None = None,    # [B, M, D] multimodal vectors
     mm_positions: torch.Tensor | None = None,  # [B, M] target positions
     attention_fn: Callable[..., torch.Tensor] = causal_attention,
     norms=fused_norm,
-) -> tuple[torch.Tensor, tuple | None]:
-    """Full-sequence forward (prefill, training). Returns (logits [B, S, V] f32 — or
-    the final-norm hidden states [B, S, D] as f32 with ``want_hidden`` —,
-    (K, V) each [L, B, S, Hkv, Dh] if ``want_kv``; with ``ShardedParams``
-    K and V are lists over the (stage, tp) ranks of [L/pp, B, S, Hkv/tp,
-    Dh], index ``s * tp + t``, None where another process holds the rank).
+) -> tuple[torch.Tensor | None, None]:
+    """Full-sequence forward over no pages (training, embeddings, the logits
+    of every position). Returns (logits [B, S, V] f32 — or the final-norm
+    hidden states [B, S, D] as f32 with ``want_hidden`` —, None): the JAX
+    function's pair, whose K/V half serving writes into the pages through
+    ``prefill`` instead.
 
-    Multimodal prefill (E/P/D): ``mm_embeds`` replace the token embeddings
-    at ``mm_positions`` (encoder outputs spliced in at placeholder tokens),
-    cast to the embeddings' dtype; a position ``>= S`` (a caller's padding)
-    is dropped, as the JAX scatter's ``mode="drop"`` drops it. The splice
-    happens before stage 0. Each stage runs its layers in turn, the
-    activation moving to the next stage's device (the JAX ``ppermute``).
+    Multimodal (E/P/D): ``mm_embeds`` replace the token embeddings at
+    ``mm_positions`` before stage 0 (``_splice``). Each stage runs its
+    layers in turn, the activation moving to the next stage's device (the
+    JAX ``ppermute``).
 
     ``attention_fn`` (the JAX hook) computes each layer's attention, called
     once per tp rank on that rank's heads with ``causal_attention``'s
     keyword arguments: the sequence-parallel paths (``parallel/
     ring_attention.py``, ``parallel/ulysses.py``) substitute theirs, and the
-    engine's serving prefills pass K3 (``ops/prefill_attention.causal``).
+    engine's embeddings and logits pass K3 (``ops/prefill_attention.causal``).
     ``norms`` computes the layers' RMSNorms, QK-norm and RoPE and the final
     norm (``rms_norm``, ``qk_norm_rope``): K4's wrappers by default, which
     raise where autograd would need their backward; the train step passes
@@ -384,48 +430,25 @@ def forward(
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    x = m.embed(tokens) if m.head.held else None
-    if mm_embeds is not None and x is not None:
-        x = _splice(x, mm_embeds, mm_positions)
-    n = m.pp * m.tp
-    ks: list[list[torch.Tensor]] = [[] for _ in range(n)]
-    vs: list[list[torch.Tensor]] = [[] for _ in range(n)]
-    shape = (B, S, cfg.d_model)
-    for s, st in enumerate(m.stages):
-        if s > 0:
-            x = m.hop(x, s - 1, s, shape)
-        if not st.held:
-            continue
-        kv_out = ((ks[s * m.tp:(s + 1) * m.tp], vs[s * m.tp:(s + 1) * m.tp])
-                  if want_kv else None)
-        x = run_stage(cfg, st, x, positions, cos, sin, kv_valid=kv_valid,
-                      attention_fn=attention_fn, kv_out=kv_out, norms=norms)
-    x = m.hop(x, m.pp - 1, 0, shape)
-    m.flush()
-    kv = None
-    if want_kv:
-        kv = ([torch.stack(k) if k else None for k in ks],
-              [torch.stack(v) if v else None for v in vs])
-        if not isinstance(params, par.ShardedParams):
-            kv = (kv[0][0], kv[1][0])
+    x = m.run_stages(m.stage0_input(tokens, mm_embeds, mm_positions), (B, S, cfg.d_model),
+                     lambda s, st, x: run_stage(cfg, st, x, positions, cos, sin,
+                                                kv_valid=kv_valid, attention_fn=attention_fn,
+                                                norms=norms))
     if x is None:
-        return None, kv
+        return None, None
     x = m.final_norm(x, cfg, norms)
-    if want_hidden:
-        return x.float(), kv
-    return m.logits(x), kv
+    return (x.float() if want_hidden else m.logits(x)), None
 
 
 def run_stage(cfg: ModelConfig, st: _Stage, x: torch.Tensor, positions: torch.Tensor,
               cos: torch.Tensor, sin: torch.Tensor, *,
               kv_valid: torch.Tensor | None = None,
               attention_fn: Callable[..., torch.Tensor] = causal_attention,
-              kv_out: tuple[list, list] | None = None, norms=fused_norm) -> torch.Tensor:
+              norms=fused_norm) -> torch.Tensor:
     """Stage ``st``'s layers over the full sequences ``x`` [B, S, D] (the
     JAX layer scan): returns the stage's output on its device. Each tp rank
     attends through ``attention_fn`` on its own heads, its norms and RoPE
-    through ``norms`` (``forward``'s); with ``kv_out`` (K and V lists, one
-    list per tp rank) each layer's K and V are appended."""
+    through ``norms`` (``forward``'s)."""
     per_tp = {}
     for t in st.local_tp:
         dev = st.layout.tp_device(t)
@@ -435,9 +458,6 @@ def run_stage(cfg: ModelConfig, st: _Stage, x: torch.Tensor, positions: torch.Te
     def attend(t, lp, xt):
         c, s_, pos, valid = per_tp[t]
         q, k, v = _qkv(cfg, lp, xt, c, s_, norms)
-        if kv_out is not None:
-            kv_out[0][t].append(k)
-            kv_out[1][t].append(v)
         return attention_fn(q, k, v, q_positions=pos, kv_positions=pos, kv_valid=valid)
 
     x = x.to(st.dev)
@@ -463,6 +483,86 @@ def _splice(x: torch.Tensor, mm_embeds: torch.Tensor,
     return out[:, :S]
 
 
+def prefill(
+    params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                      # [N, S] each row's window (padded)
+    new_len: torch.Tensor,                     # [N] real tokens of each window
+    k_pages,                                   # [L, N_blocks, block, Hkv, Dh]; a list
+    v_pages,                                   # per (stage, tp) rank when sharded
+    block_tables: torch.Tensor,                # [N, W] int32
+    prior_len: torch.Tensor | None = None,     # [N] tokens already in the pages
+    prior_tables: torch.Tensor | None = None,  # [N, P] the blocks that hold them
+    *,
+    mm_embeds: torch.Tensor | None = None,     # [N, M, D] multimodal vectors
+    mm_positions: torch.Tensor | None = None,  # [N, M] their window positions
+) -> tuple[torch.Tensor | None, Any, Any]:
+    """Serving prefill: N rows' windows through every layer, their KV
+    written into the pages. Returns (logits [N, V] f32 at each row's last
+    real token, k_pages, v_pages), the pages written in place.
+
+    Row n's tokens sit at positions ``prior_len[n] + t`` (from 0 without
+    ``prior_len``). Each layer attends through K3
+    (``ops/prefill_attention.py``; its plain version on the CPU): over the
+    row's first ``prior_len[n]`` tokens, gathered from its blocks
+    ``prior_tables[n]`` (``block_tables[n]`` without them), then causally
+    over the window's first ``new_len[n]`` tokens. Without ``prior_len`` K3
+    gets no prior columns: a whole prompt, or a batch of them. The window's
+    KV goes to ``block_tables[n]`` at ``prior_len[n] + t``, padding
+    positions to the trash block 0 (``_write_kv``). The final norm and the
+    head run on each row's last real token only.
+
+    ``mm_embeds`` are spliced in before stage 0, as in ``forward``. With
+    stages, each stage reads the prior KV of its layers from its own pages
+    and writes its own, as the JAX pp prefill does."""
+    m = _Model(params)
+    N, S = tokens.shape
+    dev = tokens.device
+    new_len = new_len.to(dev, torch.int32)
+    t = torch.arange(S, dtype=torch.int32, device=dev)
+    if prior_len is None:
+        positions = t.expand(N, S)
+    else:
+        prior_len = prior_len.to(dev, torch.int32)
+        positions = prior_len[:, None] + t
+        prior_tables = (block_tables if prior_tables is None else prior_tables).long()
+    valid = t < new_len[:, None]
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+
+    def stage(s, st, x):
+        kps, vps = m.stage_pages(k_pages, s), m.stage_pages(v_pages, s)
+        per_tp = {r: tuple(None if a is None else a.to(kps[r].device)
+                           for a in (cos, sin, prior_len, new_len, prior_tables))
+                  for r in st.local_tp}
+        ks: list[list[torch.Tensor]] = [[] for _ in range(st.tp)]
+        vs: list[list[torch.Tensor]] = [[] for _ in range(st.tp)]
+        x = x.to(st.dev)
+        for li, lps in enumerate(st.layers):
+            def attend(r, lp, xt):
+                c, s_, n_prior, n_new, tab = per_tp[r]
+                q, k, v = _qkv(cfg, lp, xt, c, s_)
+                ks[r].append(k)
+                vs[r].append(v)
+                if tab is None:
+                    return prefill_attention(q, k, v, new_len=n_new)
+                cols = (N, -1, *k.shape[2:])
+                return prefill_attention(q, k, v, k_prior=kps[r][li][tab].reshape(cols),
+                                         v_prior=vps[r][li][tab].reshape(cols),
+                                         prior_len=n_prior, new_len=n_new)
+
+            x = st.layer(cfg, lps, x, attend)
+        for r in st.local_tp:
+            _write_kv(kps[r], vps[r], ks[r], vs[r], block_tables, positions, valid)
+        return x
+
+    x = m.run_stages(m.stage0_input(tokens, mm_embeds, mm_positions), (N, S, cfg.d_model),
+                     stage)
+    if x is None:
+        return None, k_pages, v_pages
+    last = x[torch.arange(N, device=x.device), (new_len - 1).long().to(x.device)]
+    return m.logits(m.final_norm(last, cfg)), k_pages, v_pages
+
+
 def decode_slab(cfg: ModelConfig, st: _Stage, x: torch.Tensor, kps, vps,
                 block_tables: torch.Tensor, positions: torch.Tensor,
                 paged_attention: Callable[..., torch.Tensor] = paged_decode_attention_cuda,
@@ -474,23 +574,16 @@ def decode_slab(cfg: ModelConfig, st: _Stage, x: torch.Tensor, kps, vps,
 
     The layer loop only reads the pages; the current token attends to itself
     through the ``cur_k``/``cur_v`` column, and the stage's current-token KV
-    is written afterwards with one scatter per page tensor. Inactive lanes
-    point their block table at the trash block 0. A lane that has passed its
-    block table (a fused decode chunk keeps stepping a finished lane) writes
-    through the table's last entry, clamped explicitly here (JAX clamps the
-    gather index silently); the kernel bounds its page walk the same way.
+    is written afterwards (``_write_kv``). Inactive lanes point their block
+    table at the trash block 0; a lane that has passed its block table (a
+    fused decode chunk keeps stepping a finished lane) writes through the
+    table's last entry, and the kernel bounds its page walk the same way.
     Each tp rank attends over its own pages (one kernel launch per rank and
     layer)."""
-    B = x.shape[0]
-    block = next(k for k in kps if k is not None).shape[2]
-    W = block_tables.shape[1]
     positions = positions.to(st.dev, torch.int32)
     block_tables = block_tables.to(st.dev)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)  # [B, half]
     seq_lens = positions + 1
-    lane = torch.arange(B, device=st.dev)
-    blk_idx = block_tables[lane, (positions // block).clamp(max=W - 1).long()].long()
-    slot = (positions % block).long()
     per_tp = {}
     for t in st.local_tp:
         dev = kps[t].device
@@ -512,10 +605,7 @@ def decode_slab(cfg: ModelConfig, st: _Stage, x: torch.Tensor, kps, vps,
 
         x = st.layer(cfg, lps, x, attend)
     for t in st.local_tp:
-        dev = kps[t].device
-        bi, si = blk_idx.to(dev), slot.to(dev)
-        kps[t][:, bi, si] = torch.stack(k_cur[t]).to(kps[t].dtype)
-        vps[t][:, bi, si] = torch.stack(v_cur[t]).to(vps[t].dtype)
+        _write_kv(kps[t], vps[t], k_cur[t], v_cur[t], block_tables, positions)
     return x
 
 
@@ -535,143 +625,10 @@ def decode_step(
     stages, the broadcast ring of the JAX ``_ring_decode_step``, which runs
     only the stage whose turn it is."""
     m = _Model(params)
-    shape = (tokens.shape[0], 1, cfg.d_model)
-    x = m.embed(tokens)[:, None] if m.head.held else None    # [B, 1, D]
-    for s, st in enumerate(m.stages):
-        if s > 0:
-            x = m.hop(x, s - 1, s, shape)
-        if st.held:
-            x = decode_slab(cfg, st, x, m.stage_pages(k_pages, s),
-                            m.stage_pages(v_pages, s), block_tables, positions,
-                            paged_attention)
-    x = m.hop(x, m.pp - 1, 0, shape)
-    m.flush()
+    x = m.run_stages(m.stage0_input(tokens[:, None]), (tokens.shape[0], 1, cfg.d_model),
+                     lambda s, st, x: decode_slab(cfg, st, x, m.stage_pages(k_pages, s),
+                                                  m.stage_pages(v_pages, s), block_tables,
+                                                  positions, paged_attention))
     if x is None:
         return None, k_pages, v_pages
     return m.logits(m.final_norm(x[:, 0], cfg)), k_pages, v_pages
-
-
-def prefill_with_prefix(
-    params,
-    cfg: ModelConfig,
-    tokens: torch.Tensor,        # [1, S] suffix tokens (may be padded)
-    suffix_len: torch.Tensor,    # [1] valid suffix tokens
-    prefix_len: torch.Tensor,    # [1] tokens already present in the pages
-    k_pages,                     # [L, N, block, Hkv, Dh] (a list per (stage, tp) rank)
-    v_pages,
-    block_table_row: torch.Tensor,  # [1, max_blocks] full table (KV scatter)
-    prior_table_row: torch.Tensor | None = None,  # [1, P] gather window
-) -> tuple[torch.Tensor, Any, Any]:
-    """Prefill continuing from cached prefix KV (automatic prefix caching).
-
-    The suffix attends to the cached prefix gathered from the pages plus
-    itself causally (K3, ``ops/prefill_attention.py``, with the gathered
-    prefix and the suffix as its two column parts; the plain version on the
-    CPU); its KV is written into the pages at prefix_len + t.
-    With stages, each stage reads the prior KV of its layers from its own
-    pages and writes its own (the JAX ``make_pp_prefill_with_prefix``).
-    Returns (last-token logits [1, V] f32, k_pages, v_pages), pages updated
-    in place."""
-    m = _Model(params)
-    kps, vps = _page_list(k_pages), _page_list(v_pages)
-    B, S = tokens.shape
-    assert B == 1
-    block = next(k for k in kps if k is not None).shape[2]
-    if prior_table_row is None:
-        prior_table_row = block_table_row
-    W = block_table_row.shape[1]
-    T = prior_table_row.shape[1] * block
-    Dh = cfg.head_dim
-    dev = tokens.device
-    suffix_len = suffix_len.to(dev)
-    prefix_len = prefix_len.to(dev)
-
-    t_idx = torch.arange(S, dtype=torch.int32, device=dev)
-    positions = prefix_len[:, None].int() + t_idx[None, :]           # [1, S]
-    cos, sin = rope_table(positions, Dh, cfg.rope_theta)
-    prior_len, new_len = prefix_len.int(), suffix_len.int()
-    prior = prior_table_row[0].long()
-    # Suffix KV goes to offset positions (padding -> trash block 0).
-    tgt = prefix_len[0] + t_idx
-    valid = t_idx < suffix_len[0]
-    table_blk = block_table_row[0, (tgt // block).clamp(max=W - 1).long()]
-    blk_for_t = torch.where(valid, table_blk, torch.zeros_like(table_blk)).long()
-    slot_for_t = torch.where(valid, tgt % block, torch.zeros_like(tgt)).long()
-
-    x = m.embed(tokens) if m.head.held else None
-    shape = (1, S, cfg.d_model)
-    for s, st in enumerate(m.stages):
-        if s > 0:
-            x = m.hop(x, s - 1, s, shape)
-        if not st.held:
-            continue
-        skp, svp = m.stage_pages(kps, s), m.stage_pages(vps, s)
-        per_tp = {t: tuple(a.to(skp[t].device) for a in (cos, sin, prior_len, new_len,
-                                                          prior))
-                  for t in st.local_tp}
-        k_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
-        v_new: list[list[torch.Tensor]] = [[] for _ in range(m.tp)]
-        x = x.to(st.dev)
-        for li, lps in enumerate(st.layers):
-            def attend(t, lp, xt):
-                c, s_, n_prior, n_new, pr = per_tp[t]
-                q, k, v = _qkv(cfg, lp, xt, c, s_)
-                Hkv = k.shape[2]
-                k_prior = skp[t][li][pr].reshape(1, T, Hkv, Dh)
-                v_prior = svp[t][li][pr].reshape(1, T, Hkv, Dh)
-                k_new[t].append(k[0])
-                v_new[t].append(v[0])
-                return prefill_attention(q, k, v, k_prior=k_prior, v_prior=v_prior,
-                                         prior_len=n_prior, new_len=n_new)
-
-            x = st.layer(cfg, lps, x, attend)
-        for t in st.local_tp:
-            d = skp[t].device
-            bi, si = blk_for_t.to(d), slot_for_t.to(d)
-            skp[t][:, bi, si] = torch.stack(k_new[t]).to(skp[t].dtype)
-            svp[t][:, bi, si] = torch.stack(v_new[t]).to(svp[t].dtype)
-
-    x = m.hop(x, m.pp - 1, 0, shape)
-    m.flush()
-    if x is None:
-        return None, k_pages, v_pages
-    x = m.final_norm(x, cfg)
-    last = x[0, (suffix_len[0] - 1).long().to(x.device)][None]
-    return m.logits(last), k_pages, v_pages
-
-
-def write_prefill_kv(
-    k_pages,                     # [L, N, block, Hkv, Dh] (a list per tp rank)
-    v_pages,
-    k_new,                       # [L, B, S, Hkv, Dh] from forward(want_kv=True)
-    v_new,
-    block_tables: torch.Tensor,  # [B, max_blocks]
-    seq_lens: torch.Tensor,      # [B] valid prompt tokens
-) -> tuple[Any, Any]:
-    """Write freshly prefilled KV rows into their pages, in place (per tp
-    rank where pages and KV are lists).
-
-    Token t of sequence b lands in block block_tables[b, t // block] at slot
-    t % block; padding tokens (t >= seq_lens[b]) go to the trash block 0."""
-    kps, vps = _page_list(k_pages), _page_list(v_pages)
-    kns, vns = _page_list(k_new), _page_list(v_new)
-    L, B, S, _, Dh = next(k for k in kns if k is not None).shape
-    block = next(k for k in kps if k is not None).shape[2]
-    W = block_tables.shape[1]
-    dev = block_tables.device
-    t = torch.arange(S, dtype=torch.int32, device=dev)
-    blk_for_t = block_tables[:, (t // block).clamp(max=W - 1).long()]  # [B, S]
-    valid = t[None, :] < seq_lens.to(dev)[:, None]
-    blk_for_t = torch.where(valid, blk_for_t, torch.zeros_like(blk_for_t))
-    slot_for_t = torch.where(valid, (t % block)[None, :].expand(B, S),
-                             torch.zeros((B, S), dtype=torch.int32, device=dev))
-    bidx = blk_for_t.reshape(-1).long()
-    sidx = slot_for_t.reshape(-1).long()
-    for kp, vp, kn, vn in zip(kps, vps, kns, vns):
-        if kp is None:  # another process's rank
-            continue
-        Hkv = kn.shape[3]
-        bi, si = bidx.to(kp.device), sidx.to(kp.device)
-        kp[:, bi, si] = kn.reshape(L, B * S, Hkv, Dh).to(kp.device, kp.dtype)
-        vp[:, bi, si] = vn.reshape(L, B * S, Hkv, Dh).to(vp.device, vp.dtype)
-    return k_pages, v_pages

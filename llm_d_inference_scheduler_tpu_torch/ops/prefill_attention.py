@@ -23,9 +23,10 @@ raises: there is no fallback. It has no backward, so an input that requires
 grad is refused on every device: training keeps ``causal_attention``.
 ``launches`` counts kernel launches only.
 
-``causal`` is the kernel behind ``causal_attention``'s signature, the
-``attention_fn`` the engine hands ``llama.forward`` for its whole-prompt,
-batched, embedding and logits prefills (no prior part).
+Its serving caller is ``llama.prefill`` (every prompt window, with or
+without a prior part). ``causal`` is the kernel behind
+``causal_attention``'s signature, the ``attention_fn`` the engine hands
+``llama.forward`` for its embeddings and logits (no prior part).
 """
 
 from __future__ import annotations

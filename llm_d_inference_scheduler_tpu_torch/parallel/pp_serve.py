@@ -3,9 +3,10 @@
 Port of ``llm_d_inference_scheduler_tpu/parallel/pp_serve.py``. The layout
 (ranks ``(pp, tp, ep)``, stage ``s`` holding layers ``[s·L/P, (s+1)·L/P)``
 and their KV pages, the embedding and head on stage 0) is
-``parallel/serve.py``'s; prefill, prefix prefill and the embeddings run the
-stages in turn inside ``models/llama.py`` (``forward``,
-``prefill_with_prefix``), as does the broadcast ring (``decode_step``).
+``parallel/serve.py``'s; prefill (every window, with or without a cached
+prefix) and the embeddings run the stages in turn inside
+``models/llama.py`` (``prefill``, ``forward``), as does the broadcast ring
+(``decode_step``).
 
 One process drives every stage, so where the JAX SPMD ring runs every stage
 on every turn and throws away the off-turn work (redirecting its KV writes

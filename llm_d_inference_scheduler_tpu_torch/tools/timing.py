@@ -1,5 +1,4 @@
-"""Device timing of CUDA work on one card, shared by ``chip_smoke.py`` and
-``tools/kernel_ab.py``."""
+"""Device timing of CUDA work on one card, for ``chip_smoke.py``."""
 
 from __future__ import annotations
 

@@ -13,8 +13,9 @@ version.
   bit-equal to the same step through the wrappers' CPU path.
 - The kernel's limits (width, head dim, dtype, shapes) raise, checked on
   meta tensors.
-- Who reaches K4: every serving caller of ``models/llama.py`` (whole-prompt
-  forward, prefix continuation, decode, the sharded layer) calls
+- Who reaches K4: every serving caller of ``models/llama.py`` (forward,
+  prefill of a whole prompt and over a cached prefix, decode, the sharded
+  layer) calls
   ``rms_norm`` 2 x L + 1 times (the MLP norm with the residual) and
   ``qk_norm_rope`` L times, and the vision tower its norms.
 - The bytes ``chip_smoke.py`` phase 6c sets beside K4's timings.
@@ -273,7 +274,7 @@ def counted(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["tiny", "tiny-qwen", "tiny-moe"])
-@pytest.mark.parametrize("path", ["forward", "prefix", "decode", "tp2"])
+@pytest.mark.parametrize("path", ["forward", "prefill", "prefix", "decode", "tp2"])
 def test_serving_callers_reach_k4(counted, name, path):
     """Each serving form calls rms_norm 2 x L + 1 times (L with the
     residual) and qk_norm_rope L times (with norm weights on tiny-qwen)."""
@@ -288,9 +289,11 @@ def test_serving_callers_reach_k4(counted, name, path):
     i32 = lambda n: torch.tensor([n], dtype=torch.int32)
     if path == "forward":
         llama.forward(params, cfg, tokens)
+    elif path == "prefill":
+        llama.prefill(params, cfg, tokens, i32(24), kp, vp, row)
     elif path == "prefix":
-        llama.prefill_with_prefix(params, cfg, tokens[:, 16:], i32(8), i32(16), kp, vp, row,
-                                  row[:, :16 // block])
+        llama.prefill(params, cfg, tokens[:, 16:], i32(8), kp, vp, row, i32(16),
+                      row[:, :16 // block])
     elif path == "decode":
         llama.decode_step(params, cfg, tokens[0, :1], i32(16), kp, vp, row)
     else:

@@ -411,11 +411,11 @@ def test_prefill_attention_refusals_on_cuda(gpu):
 @pytest.mark.parametrize("name", ["tiny", "tiny-qwen", "tiny-moe"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_forward_and_prefix_through_k3(gpu, name, dtype):
-    """The serving forms on the card: a 32-token forward with K3 as its
-    attention_fn writes its KV into pages, a 16-token prefix continuation
-    attends over them through K3; its last logits against the plain
-    forward over all 48 tokens (f32: the order of sums; bf16: 5 % of the
-    largest logit, the rounding of 2 layers' attention outputs)."""
+    """The serving forms on the card: a 32-token prefill with no prior part
+    writes its KV into pages, a 16-token window over them attends through
+    K3; its last logits against the plain forward over all 48 tokens (f32:
+    the order of sums; bf16: 5 % of the largest logit, the rounding of 2
+    layers' attention outputs)."""
     cfg = dataclasses.replace(configs.get_config(name), dtype=dtype)
     params = llama.init_params(cfg, "cuda", generator=gpu)
     prompt = torch.randint(1, cfg.vocab_size, (1, 48), generator=gpu, device="cuda")
@@ -426,16 +426,42 @@ def test_prefill_forward_and_prefix_through_k3(gpu, name, dtype):
     row = torch.arange(1, 1 + 64 // block, dtype=torch.int32, device="cuda")[None]
     i32 = lambda n: torch.tensor([n], dtype=torch.int32, device="cuda")
     before = prefill_attention.launches
-    _, (kn, vn) = llama.forward(params, cfg, prompt[:, :32], want_kv=True,
-                                attention_fn=prefill_attention.causal)
-    llama.write_prefill_kv(kp, vp, kn, vn, row, i32(32))
-    kern, _, _ = llama.prefill_with_prefix(params, cfg, prompt[:, 32:], i32(16), i32(32),
-                                           kp, vp, row, row[:, :32 // block])
+    llama.prefill(params, cfg, prompt[:, :32], i32(32), kp, vp, row)
+    kern, _, _ = llama.prefill(params, cfg, prompt[:, 32:], i32(16), kp, vp, row, i32(32),
+                               row[:, :32 // block])
     assert prefill_attention.launches == before + 2 * cfg.n_layers
     plain, _ = llama.forward(params, cfg, prompt)
     plain = plain[:, -1]
     tol = 1e-4 if dtype == "float32" else 5e-2 * float(plain.abs().max())
     torch.testing.assert_close(kern, plain, atol=tol, rtol=1e-4 if dtype == "float32" else 0)
+
+
+@pytest.mark.parametrize("name", ["tiny", "tiny-qwen", "tiny-moe"])
+def test_prefill_windows_match_one_call(gpu, name):
+    """bf16 on the card: a 96-token prompt prefilled in one call and in
+    three 32-token windows, each over the blocks the ones before it wrote
+    (K3 with and without a prior part): the last logits, and every page
+    the prompt wrote, within 5 % of the largest value (the rounding of 2
+    layers' attention outputs, as above)."""
+    cfg = dataclasses.replace(configs.get_config(name), dtype="bfloat16")
+    params = llama.init_params(cfg, "cuda", generator=gpu)
+    n, win, block = 96, 32, cfg.kv_block_size
+    prompt = torch.randint(1, cfg.vocab_size, (1, n), generator=gpu, device="cuda")
+    shape = (cfg.n_layers, 1 + n // block, block, cfg.n_kv_heads, cfg.head_dim)
+    row = torch.arange(1, 1 + n // block, dtype=torch.int32, device="cuda")[None]
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device="cuda")
+    pages = [torch.zeros(shape, dtype=torch.bfloat16, device="cuda") for _ in range(4)]
+    whole, _, _ = llama.prefill(params, cfg, prompt, i32(n), pages[0], pages[1], row)
+    before = prefill_attention.path_launches["wgmma"]
+    for start in range(0, n, win):
+        prior = {} if start == 0 else dict(prior_len=i32(start),
+                                           prior_tables=row[:, :start // block])
+        last, _, _ = llama.prefill(params, cfg, prompt[:, start:start + win], i32(win),
+                                   pages[2], pages[3], row, **prior)
+    assert prefill_attention.path_launches["wgmma"] == before + n // win * cfg.n_layers
+    for got, want in ((last, whole), (pages[2], pages[0]), (pages[3], pages[1])):
+        tol = 5e-2 * float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
 # ---- K4: RMSNorm, QK-norm and RoPE -------------------------------------------
@@ -595,12 +621,11 @@ def test_k4_refusals_and_grad_on_cuda(gpu):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_served_qwen3_window_launches_k4(gpu, dtype):
     """One served window on Qwen3-32B's widths (2 of its 64 layers): a
-    1024-token prefix continuation through prefill_with_prefix over 512
-    cached tokens launches K4 3 x L + 1 times (ln_attn, QK-norm and RoPE,
-    the residual add and ln_mlp in each layer; the final norm), K3 L
-    times, and its greedy token equals the eager chain's on the same
-    pages (logits within 5 % of the largest in bf16: two layers' rounding;
-    1e-3 in f32)."""
+    1024-token window through prefill over 512 cached tokens launches K4 3
+    x L + 1 times (ln_attn, QK-norm and RoPE, the residual add and ln_mlp
+    in each layer; the final norm), K3 L times, and its greedy token
+    equals the eager chain's on the same pages (logits within 5 % of the
+    largest in bf16: two layers' rounding; 1e-3 in f32)."""
     cfg = dataclasses.replace(configs.get_config("qwen3-32b"), n_layers=2, dtype=dtype)
     params = llama.init_params(cfg, "cuda", generator=gpu)
     block = cfg.kv_block_size
@@ -614,8 +639,8 @@ def test_served_qwen3_window_launches_k4(gpu, dtype):
     i32 = lambda n: torch.tensor([n], dtype=torch.int32, device="cuda")
 
     def window():
-        return llama.prefill_with_prefix(params, cfg, tokens, i32(S), i32(prefix), kp.clone(),
-                                         vp.clone(), row, row[:, :prefix // block])[0]
+        return llama.prefill(params, cfg, tokens, i32(S), kp.clone(), vp.clone(), row,
+                             i32(prefix), row[:, :prefix // block])[0]
 
     ops.reset_kernel_launches()
     with torch.no_grad():

@@ -54,22 +54,36 @@ def _pages(cfg, n_blocks, rng=None):
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_forward_logits_and_kv_match_jax(name):
+    """forward's logits and hidden states, and the K/V ``prefill`` writes
+    for the same prompts (read back from the pages), against the JAX
+    forward's."""
     jcfg, tcfg = _f32(name)
     jp, tp = _params(name)
     tokens = np.random.default_rng(0).integers(0, tcfg.vocab_size, (2, 12)).astype(np.int32)
     jl, (jk, jv) = jax_llama.forward(jp, jcfg, jnp.asarray(tokens), want_kv=True)
-    tl, (tk, tv) = llama.forward(tp, tcfg, _t(tokens), want_kv=True)
+    tl, kv = llama.forward(tp, tcfg, _t(tokens))
+    assert kv is None
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **TOL)
-    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
     hidden, _ = llama.forward(tp, tcfg, _t(tokens), want_hidden=True)
     jh, _ = jax_llama.forward(jp, jcfg, jnp.asarray(tokens), want_hidden=True)
     np.testing.assert_allclose(hidden.numpy(), np.asarray(jh), **TOL)
+    # Row b's 12 tokens fill block 1 + b: its first 12 slots are the K/V.
+    tk, tv = _t(_pages(tcfg, 3)), _t(_pages(tcfg, 3))
+    last, _, _ = llama.prefill(tp, tcfg, _t(tokens), _t(np.asarray([12, 12], np.int32)),
+                              tk, tv, _t(np.asarray([[1], [2]], np.int32)))
+    np.testing.assert_allclose(last.numpy(), np.asarray(jl)[:, -1], **TOL)
+    np.testing.assert_allclose(tk.numpy()[:, 1:, :12], np.asarray(jk), **TOL)
+    np.testing.assert_allclose(tv.numpy()[:, 1:, :12], np.asarray(jv), **TOL)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_write_prefill_kv_matches_jax(name):
+    """The one KV scatter (``_write_kv``) against the JAX ``write_prefill_kv``
+    on the same random K/V, bit for bit; then a batched prefill with a
+    padded row: the pages ``prefill`` writes and its last-token logits
+    against the JAX forward + ``write_prefill_kv``."""
     jcfg, tcfg = _f32(name)
+    jp, tp = _params(name)
     rng = np.random.default_rng(1)
     L, B, S = tcfg.n_layers, 2, 20
     k_new = rng.normal(size=(L, B, S, tcfg.n_kv_heads, tcfg.head_dim)).astype(np.float32)
@@ -80,12 +94,26 @@ def test_write_prefill_kv_matches_jax(name):
         jnp.asarray(_pages(tcfg, 9)), jnp.asarray(_pages(tcfg, 9)), jnp.asarray(k_new),
         jnp.asarray(v_new), jnp.asarray(tables), jnp.asarray(seq_lens))
     tk, tv = _t(_pages(tcfg, 9)), _t(_pages(tcfg, 9))
-    out = llama.write_prefill_kv(tk, tv, _t(k_new), _t(v_new), _t(tables), _t(seq_lens))
-    assert out[0] is tk and out[1] is tv  # written in place
+    t = torch.arange(S, dtype=torch.int32)
+    llama._write_kv(tk, tv, list(_t(k_new)), list(_t(v_new)), _t(tables), t.expand(B, S),
+                    t < _t(seq_lens)[:, None])
     # Block 0 is the trash block: padding writes land there in an order
     # neither framework defines. Every other block must match exactly.
     np.testing.assert_array_equal(tk.numpy()[:, 1:], np.asarray(jk)[:, 1:])
     np.testing.assert_array_equal(tv.numpy()[:, 1:], np.asarray(jv)[:, 1:])
+
+    tokens = rng.integers(0, tcfg.vocab_size, (B, S)).astype(np.int32)
+    tokens[1, 7:] = 0                                  # row 1 is 7 tokens, padded
+    jl, (k_new, v_new) = jax_llama.forward(jp, jcfg, jnp.asarray(tokens), want_kv=True)
+    jk, jv = jax_llama.write_prefill_kv(
+        jnp.asarray(_pages(tcfg, 9)), jnp.asarray(_pages(tcfg, 9)), k_new, v_new,
+        jnp.asarray(tables), jnp.asarray(seq_lens))
+    tk, tv = _t(_pages(tcfg, 9)), _t(_pages(tcfg, 9))
+    tl, k_out, v_out = llama.prefill(tp, tcfg, _t(tokens), _t(seq_lens), tk, tv, _t(tables))
+    assert k_out is tk and v_out is tv  # written in place
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl)[np.arange(B), seq_lens - 1], **TOL)
+    np.testing.assert_allclose(tk.numpy()[:, 1:], np.asarray(jk)[:, 1:], **TOL)
+    np.testing.assert_allclose(tv.numpy()[:, 1:], np.asarray(jv)[:, 1:], **TOL)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -135,14 +163,93 @@ def test_prefill_with_prefix_matches_jax(name):
         jp, jcfg, *map(jnp.asarray, args), jnp.asarray(kp), jnp.asarray(vp),
         jnp.asarray(row), jnp.asarray(row[:, :2]))
     tk, tv = _t(kp), _t(vp)
-    tl, _, _ = llama.prefill_with_prefix(tp, tcfg, *map(_t, args), tk, tv, _t(row),
-                                         _t(row[:, :2]))
+    tl, _, _ = llama.prefill(tp, tcfg, _t(suffix), _t(args[1]), tk, tv, _t(row), _t(args[2]),
+                             _t(row[:, :2]))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     np.testing.assert_allclose(tk.numpy()[:, 1:], np.asarray(jk)[:, 1:], **TOL)
     np.testing.assert_allclose(tv.numpy()[:, 1:], np.asarray(jv)[:, 1:], **TOL)
     # And the cached-prefix continuation equals the full forward's last logits.
     full, _ = llama.forward(tp, tcfg, _t(tokens))
     np.testing.assert_allclose(tl.numpy()[0], full.numpy()[0, -1], **TOL)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_prefill_in_windows_matches_one_call(name):
+    """A 50-token prompt prefilled in one call and in block-aligned windows
+    (16, 16, 16 and 2 tokens, each over the blocks the ones before it
+    wrote): the same pages and the same last logits."""
+    _, tcfg = _f32(name)
+    _, tp = _params(name)
+    block, n = tcfg.kv_block_size, 50
+    tokens = np.random.default_rng(10).integers(0, tcfg.vocab_size, (1, n)).astype(np.int32)
+    row = _t(np.asarray([[2, 4, 1, 3]], np.int32))
+    i32 = lambda *v: _t(np.asarray(v, np.int32))
+    ok, ov = _t(_pages(tcfg, 5)), _t(_pages(tcfg, 5))
+    whole, _, _ = llama.prefill(tp, tcfg, _t(tokens), i32(n), ok, ov, row)
+    wk, wv = _t(_pages(tcfg, 5)), _t(_pages(tcfg, 5))
+    for start in range(0, n, block):
+        window = tokens[:, start:start + block]
+        prior = {} if start == 0 else dict(prior_len=i32(start),
+                                           prior_tables=row[:, :start // block])
+        last, _, _ = llama.prefill(tp, tcfg, _t(window), i32(window.shape[1]), wk, wv, row,
+                                   **prior)
+    np.testing.assert_allclose(last.numpy(), whole.numpy(), **TOL)
+    np.testing.assert_allclose(wk.numpy()[:, 1:], ok.numpy()[:, 1:], **TOL)
+    np.testing.assert_allclose(wv.numpy()[:, 1:], ov.numpy()[:, 1:], **TOL)
+
+
+def prefill_rows_case(tcfg, seed):
+    """Three rows of one prefill call: a whole 20-token prompt, a 5-token
+    window over 2 prior blocks and a 12-token one over 1, on disjoint
+    block-table rows of pages whose prior blocks hold random K/V."""
+    rng = np.random.default_rng(seed)
+    block = tcfg.kv_block_size
+    new_len = np.asarray([20, 5, 12], np.int32)
+    prior_len = np.asarray([0, 2 * block, block], np.int32)
+    tokens = rng.integers(0, tcfg.vocab_size, (3, 20)).astype(np.int32)
+    tokens[np.arange(20)[None, :] >= new_len[:, None]] = 0
+    tables = np.arange(1, 13, dtype=np.int32).reshape(3, 4)
+    kp, vp = _pages(tcfg, 13, rng), _pages(tcfg, 13, rng)
+    return tokens, new_len, prior_len, tables, kp, vp
+
+
+def prefill_rows_against_single(params, tcfg, case, split):
+    """``prefill`` of the case's rows in one call and row by row (a row
+    with no prior part takes none); returns both logits and both pages
+    (``split`` lays full pages out as the params' ranks hold them, and
+    joins them back)."""
+    tokens, new_len, prior_len, tables, kp, vp = case
+    block = tcfg.kv_block_size
+    bk, bv = split(kp), split(vp)
+    batched, _, _ = llama.prefill(params, tcfg, _t(tokens), _t(new_len), bk, bv, _t(tables),
+                                  _t(prior_len), _t(tables[:, :2]))
+    sk, sv = split(kp), split(vp)
+    single = []
+    for n in range(len(tokens)):
+        P = prior_len[n] // block
+        prior = {} if not P else dict(prior_len=_t(prior_len[n:n + 1]),
+                                      prior_tables=_t(tables[n:n + 1, :P]))
+        logits, _, _ = llama.prefill(params, tcfg, _t(tokens[n:n + 1, :new_len[n]]),
+                                     _t(new_len[n:n + 1]), sk, sv, _t(tables[n:n + 1]),
+                                     **prior)
+        single.append(logits)
+    return batched, torch.cat(single), (bk, bv), (sk, sv)
+
+
+@pytest.mark.parametrize("name,impl", [("tiny", "dense"), ("tiny-moe", "dense"),
+                                       ("tiny-moe", "grouped")])
+def test_prefill_rows_match_single_rows(name, impl):
+    """N rows with mixed prior_len and new_len in one call equal N
+    single-row calls: logits and every block but the trash block."""
+    _, tcfg = _f32(name)
+    tcfg = dataclasses.replace(tcfg, moe_impl=impl)
+    _, tp = _params(name)
+    batched, single, (bk, bv), (sk, sv) = prefill_rows_against_single(
+        tp, tcfg, prefill_rows_case(tcfg, 11), lambda a: _t(a))
+    assert batched.shape == (3, tcfg.vocab_size)
+    np.testing.assert_allclose(batched.numpy(), single.numpy(), **TOL)
+    np.testing.assert_allclose(bk.numpy()[:, 1:], sk.numpy()[:, 1:], **TOL)
+    np.testing.assert_allclose(bv.numpy()[:, 1:], sv.numpy()[:, 1:], **TOL)
 
 
 def test_init_params_layout_matches_jax():

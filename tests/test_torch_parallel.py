@@ -6,10 +6,11 @@ both stacks. The JAX TP tests do not run on this image, so the reference is
 the JAX single-device engine and model:
 
 - ``validate_tp`` raises as the JAX version does;
-- logits, hidden states and K/V of the sharded forward agree with the JAX
-  model within 1e-4 (abs and rel: f32, only the summation order of the
-  row-parallel sums and matmuls differs), and the sharded decode step and
-  prefix prefill with the port's single-device ones, which
+- logits and hidden states of the sharded forward, and the K/V and
+  last logits of the sharded prefill, agree with the JAX model within 1e-4
+  (abs and rel: f32, only the summation order of the row-parallel sums and
+  matmuls differs), and the sharded decode step and prefill over a cached
+  prefix with the port's single-device ones, which
   ``tests/test_torch_model.py`` holds against JAX at the same tolerance;
 - greedy tokens of the sharded engine against the JAX single-device
   engine's are in ``tests/test_torch_parallel_engine.py``;
@@ -170,22 +171,28 @@ def _jax_forward(name, tokens):
 
 @pytest.mark.parametrize("name,tp,ep", LAYOUTS, ids=IDS)
 def test_sharded_model_matches_jax(name, tp, ep):
-    """forward (logits, hidden, K/V) of the sharded port against the JAX
-    model; decode_step (logits, pages) and prefill_with_prefix against the
-    port's single-device functions."""
+    """forward (logits, hidden) and prefill (the K/V in the pages, last
+    logits) of the sharded port against the JAX model; decode_step (logits,
+    pages) and prefill over a cached prefix against the port's
+    single-device functions."""
     _, tcfg = _f32(name)
     _, full = _params(name)
     sp = par.shard_params(full, tcfg, _layout(tp, ep))
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, tcfg.vocab_size, (2, 12)).astype(np.int32)
     jl, jk, jv, jh = _jax_forward(name, tokens)
-    tl, (tk, tv) = llama.forward(sp, tcfg, _t(tokens), want_kv=True)
-    assert len(tk) == tp and tk[0].shape[3] == tcfg.n_kv_heads // tp
+    tl, _ = llama.forward(sp, tcfg, _t(tokens))
     np.testing.assert_allclose(tl.numpy(), jl, **TOL)
-    np.testing.assert_allclose(par.join_kv_heads(tk).numpy(), jk, **TOL)
-    np.testing.assert_allclose(par.join_kv_heads(tv).numpy(), jv, **TOL)
     th, _ = llama.forward(sp, tcfg, _t(tokens), want_hidden=True)
     np.testing.assert_allclose(th.numpy(), jh, **TOL)
+    # Row b's 12 tokens into block 1 + b of every tp rank's pages.
+    tk, tv = par.alloc_sharded_pages(tcfg, sp.layout, 3, torch.float32)
+    last, _, _ = llama.prefill(sp, tcfg, _t(tokens), _t(np.asarray([12, 12], np.int32)),
+                               tk, tv, _t(np.asarray([[1], [2]], np.int32)))
+    assert len(tk) == tp and tk[0].shape[3] == tcfg.n_kv_heads // tp
+    np.testing.assert_allclose(last.numpy(), jl[:, -1], **TOL)
+    np.testing.assert_allclose(par.join_kv_heads(tk).numpy()[:, 1:, :12], jk, **TOL)
+    np.testing.assert_allclose(par.join_kv_heads(tv).numpy()[:, 1:, :12], jv, **TOL)
 
     block, maxB, B = tcfg.kv_block_size, 4, 3
     shape = (tcfg.n_layers, 1 + B * maxB, block, tcfg.n_kv_heads, tcfg.head_dim)
@@ -209,12 +216,12 @@ def test_sharded_model_matches_jax(name, tp, ep):
     suffix[0, :5] = rng.integers(0, tcfg.vocab_size, 5)
     args = (suffix, np.asarray([5], np.int32), np.asarray([2 * block], np.int32))
     rk, rv = _t(kp), _t(vp)
-    rl, _, _ = llama.prefill_with_prefix(full, tcfg, *map(_t, args), rk, rv,
-                                         _t(row), _t(row[:, :2]))
+    rl, _, _ = llama.prefill(full, tcfg, _t(suffix), _t(args[1]), rk, rv, _t(row),
+                             _t(args[2]), _t(row[:, :2]))
     tks = [x.contiguous() for x in par.split_kv_heads(_t(kp), tp)]
     tvs = [x.contiguous() for x in par.split_kv_heads(_t(vp), tp)]
-    tl, _, _ = llama.prefill_with_prefix(sp, tcfg, *map(_t, args), tks, tvs,
-                                         _t(row), _t(row[:, :2]))
+    tl, _, _ = llama.prefill(sp, tcfg, _t(suffix), _t(args[1]), tks, tvs, _t(row),
+                             _t(args[2]), _t(row[:, :2]))
     np.testing.assert_allclose(tl.numpy(), rl.numpy(), **TOL)
     np.testing.assert_allclose(par.join_kv_heads(tks).numpy()[:, 1:], rk.numpy()[:, 1:], **TOL)
 

@@ -10,13 +10,16 @@ not against another ring):
 
 - ``validate_pp`` gives the JAX verdicts and messages over a grid of
   configs and degrees;
-- logits, hidden states and K/V of ``forward`` through the stages, a decode
-  step by the broadcast ring (``decode_step``), a K-step chunk by the
-  lane-group interleave (greedy tokens against a JAX ``decode_step`` loop)
-  and ``prefill_with_prefix`` agree with the JAX model within 1e-4 (abs and
+- logits and hidden states of ``forward`` through the stages, the K/V
+  and last logits of ``prefill`` (a whole prompt, and a window over a
+  cached prefix), a decode step by the broadcast ring (``decode_step``)
+  and a K-step chunk by the lane-group interleave (greedy tokens against a
+  JAX ``decode_step`` loop) agree with the JAX model within 1e-4 (abs and
   rel, the tolerance of ``tests/test_torch_parallel.py``: f32, only the
   summation order of the row-parallel sums differs); the pages written by
-  each stage, joined, equal the JAX pages within the same tolerance;
+  each stage, joined, equal the JAX pages within the same tolerance; rows
+  with mixed prior and window lengths in one staged ``prefill`` equal
+  single-row calls;
 - a converted HF checkpoint loads into pp x tp (x ep) shards equal to the
   slices of the full weights, and seeded weights split the same way;
 - under pp alone the grouped MoE FFN (K2's plain version here) matches the
@@ -41,6 +44,7 @@ from llm_d_inference_scheduler_tpu_torch.models.convert_jax import params_from_n
 from llm_d_inference_scheduler_tpu_torch.ops.attention import paged_decode_attention
 from llm_d_inference_scheduler_tpu_torch.parallel import pp_serve
 from llm_d_inference_scheduler_tpu_torch.parallel import serve as par
+from test_torch_model import prefill_rows_against_single, prefill_rows_case
 from test_torch_parallel import _hf_state_dict
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -175,20 +179,26 @@ def _jax_forward(name, L, tokens):
 
 @pytest.mark.parametrize("name,L,pp,tp,ep", LAYOUTS, ids=IDS)
 def test_staged_forward_matches_jax(name, L, pp, tp, ep):
-    """forward through the stages: logits, hidden states and the K/V of
-    every (stage, tp) rank, joined, against the JAX model."""
+    """forward through the stages (logits, hidden states) and prefill (the
+    K/V every (stage, tp) rank writes into its pages, joined, and the last
+    logits) against the JAX model."""
     _, tcfg = f32(name, L)
     _, full = seeded_params(name, L)
     sp = par.shard_params(full, tcfg, layout(pp, tp, ep))
     tokens = np.random.default_rng(0).integers(0, tcfg.vocab_size, (2, 12)).astype(np.int32)
     jl, jk, jv, jh = _jax_forward(name, L, tokens)
-    tl, (tk, tv) = llama.forward(sp, tcfg, _t(tokens), want_kv=True)
-    assert len(tk) == pp * tp and tk[0].shape[0] == L // pp
+    tl, _ = llama.forward(sp, tcfg, _t(tokens))
     np.testing.assert_allclose(tl.numpy(), jl, **TOL)
-    np.testing.assert_allclose(par.join_pages(tk, tp).numpy(), jk, **TOL)
-    np.testing.assert_allclose(par.join_pages(tv, tp).numpy(), jv, **TOL)
     th, _ = llama.forward(sp, tcfg, _t(tokens), want_hidden=True)
     np.testing.assert_allclose(th.numpy(), jh, **TOL)
+    # Row b's 12 tokens into block 1 + b of every (stage, tp) rank's pages.
+    tk, tv = par.alloc_sharded_pages(tcfg, sp.layout, 3, torch.float32)
+    last, _, _ = llama.prefill(sp, tcfg, _t(tokens), _t(np.asarray([12, 12], np.int32)),
+                               tk, tv, _t(np.asarray([[1], [2]], np.int32)))
+    assert len(tk) == pp * tp and tk[0].shape[0] == L // pp
+    np.testing.assert_allclose(last.numpy(), jl[:, -1], **TOL)
+    np.testing.assert_allclose(par.join_pages(tk, tp).numpy()[:, 1:, :12], jk, **TOL)
+    np.testing.assert_allclose(par.join_pages(tv, tp).numpy()[:, 1:, :12], jv, **TOL)
 
 
 def _decode_case(tcfg, rng, B=4, maxB=4):
@@ -286,8 +296,9 @@ def test_interleaved_chunk_hands_the_kernel_aligned_group_tables(pp):
 
 @pytest.mark.parametrize("name,L,pp,tp,ep", LAYOUTS, ids=IDS)
 def test_staged_prefix_prefill_matches_jax(name, L, pp, tp, ep):
-    """prefill_with_prefix through the stages, each reading its layers'
-    prior KV from its own pages, against JAX ``prefill_with_prefix``."""
+    """prefill over a cached prefix through the stages, each reading its
+    layers' prior KV from its own pages, against JAX
+    ``prefill_with_prefix``."""
     jcfg, tcfg = f32(name, L)
     jp, full = seeded_params(name, L)
     sp = par.shard_params(full, tcfg, layout(pp, tp, ep))
@@ -304,11 +315,27 @@ def test_staged_prefix_prefill_matches_jax(name, L, pp, tp, ep):
         jp, jcfg, *map(jnp.asarray, args), jnp.asarray(kp), jnp.asarray(vp),
         jnp.asarray(row), jnp.asarray(row[:, :2]))
     ks, vs = _split(kp, tp, pp), _split(vp, tp, pp)
-    tl, _, _ = llama.prefill_with_prefix(sp, tcfg, *map(_t, args), ks, vs, _t(row),
-                                         _t(row[:, :2]))
+    tl, _, _ = llama.prefill(sp, tcfg, _t(suffix), _t(args[1]), ks, vs, _t(row), _t(args[2]),
+                             _t(row[:, :2]))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     np.testing.assert_allclose(par.join_pages(ks, tp).numpy()[:, 1:], np.asarray(jk)[:, 1:], **TOL)
     np.testing.assert_allclose(par.join_pages(vs, tp).numpy()[:, 1:], np.asarray(jv)[:, 1:], **TOL)
+
+
+@pytest.mark.parametrize("name,L", [("tiny", 4), ("tiny-moe", 2)])
+def test_staged_prefill_rows_match_single_rows(name, L):
+    """pp=2: rows with mixed prior and window lengths in one staged prefill
+    equal single-row staged calls (logits, each stage's pages joined)."""
+    _, tcfg = f32(name, L)
+    _, full = seeded_params(name, L)
+    sp = par.shard_params(full, tcfg, layout(2))
+    batched, single, (bk, bv), (sk, sv) = prefill_rows_against_single(
+        sp, tcfg, prefill_rows_case(tcfg, 12), lambda a: _split(a, 1, 2))
+    np.testing.assert_allclose(batched.numpy(), single.numpy(), **TOL)
+    for b, s_ in ((bk, sk), (bv, sv)):
+        assert len(b) == 2
+        np.testing.assert_allclose(par.join_pages(b, 1).numpy()[:, 1:],
+                                   par.join_pages(s_, 1).numpy()[:, 1:], **TOL)
 
 
 def test_staged_multimodal_splice_matches_jax():
@@ -330,19 +357,25 @@ def test_staged_multimodal_splice_matches_jax():
 @pytest.mark.parametrize("pp", [2])
 def test_grouped_moe_under_pp_matches_dense(pp):
     """Under pp alone each stage holds its layers' experts whole, so the
-    grouped FFN runs per stage: forward and a decode step with
-    ``moe_impl="grouped"`` (K2's plain version on the CPU) against the
-    dense FFN on the same stages."""
+    grouped FFN runs per stage: forward, prefill (last logits and pages)
+    and a decode step with ``moe_impl="grouped"`` (K2's plain version on
+    the CPU) against the dense FFN on the same stages."""
     _, tcfg = f32("tiny-moe")
     _, full = seeded_params("tiny-moe")
     sp = par.shard_params(full, tcfg, layout(pp))
     grouped = dataclasses.replace(tcfg, moe_impl="grouped")
     tokens = _t(np.random.default_rng(6).integers(0, tcfg.vocab_size, (2, 12)).astype(np.int32))
-    dl, (dk, _) = llama.forward(sp, tcfg, tokens, want_kv=True)
-    gl, (gk, _) = llama.forward(sp, grouped, tokens, want_kv=True)
+    dl, _ = llama.forward(sp, tcfg, tokens)
+    gl, _ = llama.forward(sp, grouped, tokens)
     np.testing.assert_allclose(gl.numpy(), dl.numpy(), **TOL)
-    np.testing.assert_allclose(par.join_pages(gk, 1).numpy(), par.join_pages(dk, 1).numpy(),
-                               **TOL)
+    pages = {}
+    for cfg in (tcfg, grouped):
+        k, v = par.alloc_sharded_pages(cfg, sp.layout, 3, torch.float32)
+        last, _, _ = llama.prefill(sp, cfg, tokens, _t(np.asarray([12, 12], np.int32)), k, v,
+                                   _t(np.asarray([[1], [2]], np.int32)))
+        pages[cfg.moe_impl] = (last, par.join_pages(k, 1))
+    np.testing.assert_allclose(pages["grouped"][0].numpy(), pages["dense"][0].numpy(), **TOL)
+    np.testing.assert_allclose(pages["grouped"][1].numpy(), pages["dense"][1].numpy(), **TOL)
     kp, vp, tables, positions, toks = _decode_case(tcfg, np.random.default_rng(7))
     dl, _, _ = llama.decode_step(sp, tcfg, _t(toks), _t(positions), _split(kp, 1, pp),
                                  _split(vp, 1, pp), _t(tables))

@@ -10,9 +10,9 @@ on the CPU, where its wrapper computes the plain version.
   only).
 - The refusals: an input that requires grad (K3 has no backward), a head
   dim the kernel does not take.
-- Who attends through K3: the engine's serving forwards (whole-prompt
-  prefill, the prefix continuation of chunked prefill, embeddings, the
-  logits diagnostic) do; training, ring attention, Ulysses and the GPipe
+- Who attends through K3: the engine's serving prefill (``llama.prefill``,
+  every window of chunked prefill, with or without a prior part) and its
+  forwards (embeddings, the logits diagnostic) do; training, ring attention, Ulysses and the GPipe
   forward keep ``causal_attention`` and never reach K3.
 - The least times ``chip_smoke.py`` phase 6b sets beside K3's timings at
   the longprompt cells' windows (32/8, 16/4 and 64/8 heads).
@@ -149,8 +149,9 @@ def test_refusals(case):
 
 
 def test_engine_serving_forwards_attend_through_k3(monkeypatch):
-    """Whole-prompt prefill, chunked prefill's continuation windows,
-    embeddings and the logits diagnostic all hand K3 to the model."""
+    """Every window of a chunked prefill attends through K3 (the first with
+    no prior part), and embeddings and the logits diagnostic hand K3 to
+    ``forward``."""
     cfg = dataclasses.replace(configs.get_config("tiny"), dtype="float32")
     params = llama.init_params(cfg, "cpu", generator=torch.Generator().manual_seed(3))
     fns, windows = [], []
@@ -161,7 +162,7 @@ def test_engine_serving_forwards_attend_through_k3(monkeypatch):
         return forward(*a, **kw)
 
     def recording_k3(q, k, v, **kw):
-        windows.append(kw["k_prior"].shape[1])
+        windows.append(0 if kw.get("k_prior") is None else kw["k_prior"].shape[1])
         return k3(q, k, v, **kw)
 
     monkeypatch.setattr(llama, "forward", recording_forward)
@@ -183,11 +184,13 @@ def test_engine_serving_forwards_attend_through_k3(monkeypatch):
             await engine.stop()
 
     asyncio.run(body())
-    # The request's first window, embed, logits (no warm-up here).
-    assert len(fns) == 3 and all(f is prefill_attention.causal for f in fns), fns
-    # Windows 2 and 3 of the 79-token prompt continue from 32 and 64
-    # tokens: one call per layer each.
-    assert windows == [32] * cfg.n_layers + [64] * cfg.n_layers, windows
+    # Embed and logits (no warm-up here).
+    assert len(fns) == 2 and all(f is prefill_attention.causal for f in fns), fns
+    # The 79-token prompt's three windows: the first over no prior columns,
+    # the others over the 32 and 64 tokens before them; one call per layer
+    # each.
+    L = cfg.n_layers
+    assert windows == [0] * L + [32] * L + [64] * L, windows
 
 
 def _never(*a, **kw):

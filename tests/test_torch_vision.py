@@ -1,9 +1,10 @@
 """PyTorch port, the E/P/D vision tower and the prefill splice against JAX.
 
-The tower (``models/vision.py``) and ``llama.forward``'s multimodal splice
-of the port run in f32 on the CPU on the JAX package's weights (carried over
-by ``params_from_numpy``) and seeded numpy inputs; the tower within 1e-5
-abs + 1e-5 rel of JAX ``encode_image``, the spliced logits within 1e-5.
+The tower (``models/vision.py``) and the multimodal splice of the port's
+``llama.forward`` and ``llama.prefill`` run in f32 on the CPU on the JAX
+package's weights (carried over by ``params_from_numpy``) and seeded numpy
+inputs; the tower within 1e-5 abs + 1e-5 rel of JAX ``encode_image``, the
+spliced logits and K/V within 1e-5.
 """
 
 import dataclasses
@@ -72,7 +73,8 @@ def test_encode_image_matches_jax(out_dim):
 
 def test_forward_splice_matches_jax():
     """Three encoder rows spliced at positions 0, 1 and 5, plus one padding
-    entry at position S (dropped by both)."""
+    entry at position S (dropped by both): forward's logits, and the K/V
+    and last logits of prefill with the same splice."""
     jcfg = dataclasses.replace(jax_configs.TINY, dtype="float32")
     tcfg = dataclasses.replace(configs.TINY, dtype="float32")
     jp = jax_llama.init_params(jcfg, jax.random.key(2))
@@ -84,11 +86,17 @@ def test_forward_splice_matches_jax():
     pos = np.array([[0, 1, 5, S], [2, 3, S, 7]], np.int32)
     want, (wk, _) = jax_llama.forward(jp, jcfg, tokens, want_kv=True,
                                       mm_embeds=mm, mm_positions=pos)
-    got, (gk, _) = llama.forward(tp, tcfg, torch.from_numpy(tokens), want_kv=True,
-                                 mm_embeds=torch.from_numpy(mm),
-                                 mm_positions=torch.from_numpy(pos))
+    splice = dict(mm_embeds=torch.from_numpy(mm), mm_positions=torch.from_numpy(pos))
+    got, _ = llama.forward(tp, tcfg, torch.from_numpy(tokens), **splice)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    np.testing.assert_allclose(gk.numpy(), np.asarray(wk), **TOL)
+    # Row b's S tokens into block 1 + b.
+    shape = (tcfg.n_layers, 1 + B, tcfg.kv_block_size, tcfg.n_kv_heads, tcfg.head_dim)
+    kp, vp = torch.zeros(shape), torch.zeros(shape)
+    last, _, _ = llama.prefill(tp, tcfg, torch.from_numpy(tokens),
+                               torch.full((B,), S, dtype=torch.int32), kp, vp,
+                               torch.arange(1, 1 + B, dtype=torch.int32)[:, None], **splice)
+    np.testing.assert_allclose(last.numpy(), np.asarray(want)[:, -1], **TOL)
+    np.testing.assert_allclose(kp[:, 1:, :S].numpy(), np.asarray(wk), **TOL)
     plain, _ = llama.forward(tp, tcfg, torch.from_numpy(tokens))
     assert not torch.allclose(got, plain)  # the rows did land
     # Past the last spliced position of each row, a row only differs
